@@ -1,0 +1,215 @@
+"""The two Lloyd kernel entries and their plain-torch twins.
+
+- :func:`fused_lloyd_pass` (B1) — scores, rescored argmin, reassignment
+  count and the full centroid segment sum in one pass; replaces
+  ``kmcuda_tpu/ops/assign_pallas.py:_kernel``.
+- :func:`assign_only_pass` (B2) — the same without the segment sum;
+  replaces ``_kernel_assign_only``.
+
+On a CUDA tensor each wrapper launches the hand-written kernels of
+``csrc/assign.cu`` (built at first use, see ``ops._build``); B1 is the B2
+kernel followed by the segment-sum kernels, so the two give bitwise equal
+assignments, best scores and counts.  On a CPU tensor — and only there —
+the wrapper runs the plain twin (``*_reference``), which the CPU tests
+hold against the JAX package and ``chip_smoke.py`` holds the kernels
+against on the card.  Any other device raises.
+"""
+
+import torch
+
+from kmcuda_torch.ops import _build
+from kmcuda_torch.ops import distance as D
+from kmcuda_torch.ops.assign import pad_clusters, rescore_table
+from kmcuda_torch.utils.errors import KMTPUInvalidArguments
+
+#: kernel launches per entry; a wrapper adds one where it launches
+LAUNCHES = {"fused_lloyd_pass": 0, "assign_only_pass": 0}
+
+#: the plain twins score this many (row, centroid) pairs per chunk
+REFERENCE_CHUNK_ELEMENTS = 1 << 26
+#: bound on the segment sum's per-range partial buffers
+SEGMENT_SCRATCH_BYTES = 1 << 28
+#: the segment sum gives each row range at least this many rows
+SEGMENT_MIN_ROWS = 512
+#: CUDA grid limit on the number of row ranges (gridDim.y)
+SEGMENT_MAX_PARTS = 65535
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _check_args(x, valid, prev_assign, centroids, k: int) -> None:
+    for name, t in (("x", x), ("valid", valid), ("prev_assign", prev_assign),
+                    ("centroids", centroids)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError("%s must be a torch.Tensor" % name)
+        if t.device != x.device:
+            raise KMTPUInvalidArguments(
+                "%s is on %s, x on %s" % (name, t.device, x.device))
+    if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise KMTPUInvalidArguments(
+            "x must be (n, f) float32 or bfloat16, got %s %s"
+            % (tuple(x.shape), x.dtype))
+    n, f = x.shape
+    if n < 1 or not 1 <= k < 2**31 - 1:
+        raise KMTPUInvalidArguments("need n >= 1 and 1 <= k < 2**31 - 1")
+    if valid.shape != (n,) or valid.dtype != torch.bool:
+        raise KMTPUInvalidArguments("valid must be (n,) bool")
+    if prev_assign.shape != (n,) or prev_assign.dtype != torch.int32:
+        raise KMTPUInvalidArguments("prev_assign must be (n,) int32")
+    if centroids.shape != (k, f) or centroids.dtype != torch.float32:
+        raise KMTPUInvalidArguments(
+            "centroids must be (%d, %d) float32, got %s %s"
+            % (k, f, tuple(centroids.shape), centroids.dtype))
+    for name, t in (("x", x), ("valid", valid), ("prev_assign", prev_assign)):
+        if not t.is_contiguous():
+            raise KMTPUInvalidArguments("%s must be contiguous" % name)
+    if x.device.type not in ("cpu", "cuda"):
+        raise KMTPUInvalidArguments("unsupported device %s" % x.device)
+
+
+def segment_parts(n: int, k: int, f: int) -> int:
+    """Number of row ranges of the segment sum: enough to fill the card,
+    at least SEGMENT_MIN_ROWS rows each, partials within the scratch cap.
+    A pure function of the shape, so the summation order — hence the
+    sums — repeat bitwise."""
+    cap = max(1, SEGMENT_SCRATCH_BYTES // (4 * k * f))
+    return max(1, min(cap, -(-n // SEGMENT_MIN_ROWS), SEGMENT_MAX_PARTS))
+
+
+def _launch_assign(lib, x, valid, prev_assign, centroids, k, metric,
+                   stream):
+    n, f = x.shape
+    panel, c_sq = pad_clusters(centroids, x.dtype)
+    ctab = rescore_table(centroids)
+    aid = torch.empty((n,), dtype=torch.int32, device=x.device)
+    best = torch.empty((n,), dtype=torch.float32, device=x.device)
+    changed = torch.zeros((1,), dtype=torch.int32, device=x.device)
+    code = lib.kmt_assign(
+        x.data_ptr(), panel.data_ptr(), c_sq.data_ptr(), ctab.data_ptr(),
+        valid.data_ptr(), prev_assign.data_ptr(), aid.data_ptr(),
+        best.data_ptr(), changed.data_ptr(), n, f, k,
+        int(x.dtype == torch.bfloat16),
+        int(metric == D.DistanceMetric.COSINE), stream)
+    _build.check(lib, code, "kmt_assign")
+    return aid, best, changed[0]
+
+
+def assign_only_pass(x, valid, prev_assign, centroids, *, n_clusters: int,
+                     metric: D.DistanceMetric):
+    """B2: returns (assign (n,) int32, best (n,) fp32, changed () int32)."""
+    _check_args(x, valid, prev_assign, centroids, n_clusters)
+    if x.device.type == "cpu":
+        return assign_only_pass_reference(
+            x, valid, prev_assign, centroids, n_clusters=n_clusters,
+            metric=metric)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        out = _launch_assign(lib, x, valid, prev_assign, centroids,
+                             n_clusters, metric, stream)
+    LAUNCHES["assign_only_pass"] += 1
+    return out
+
+
+def fused_lloyd_pass(x, valid, prev_assign, centroids, *, n_clusters: int,
+                     metric: D.DistanceMetric):
+    """B1: returns (assign (n,) int32, best (n,) fp32, sums (K, F) fp32,
+    counts (K,) int32, changed () int32) — the full segment sum of the
+    fresh assignment, which the Lloyd loop normalizes."""
+    _check_args(x, valid, prev_assign, centroids, n_clusters)
+    if x.device.type == "cpu":
+        return fused_lloyd_pass_reference(
+            x, valid, prev_assign, centroids, n_clusters=n_clusters,
+            metric=metric)
+    k = n_clusters
+    n, f = x.shape
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        aid, best, changed = _launch_assign(
+            lib, x, valid, prev_assign, centroids, k, metric, stream)
+        parts = segment_parts(n, k, f)
+        sums = torch.empty((k, f), dtype=torch.float32, device=x.device)
+        counts = torch.zeros((k,), dtype=torch.int32, device=x.device)
+        partial = torch.empty((parts * k * f if parts > 1 else 1,),
+                              dtype=torch.float32, device=x.device)
+        code = lib.kmt_segment_sum(
+            x.data_ptr(), aid.data_ptr(), partial.data_ptr(),
+            sums.data_ptr(), counts.data_ptr(), n, f, k, parts,
+            int(x.dtype == torch.bfloat16), stream)
+        _build.check(lib, code, "kmt_segment_sum")
+    LAUNCHES["fused_lloyd_pass"] += 1
+    return aid, best, sums, counts, changed
+
+
+def assign_only_pass_reference(x, valid, prev_assign, centroids, *,
+                               n_clusters: int, metric: D.DistanceMetric):
+    """Plain twin of :func:`assign_only_pass`, from ``ops.distance``."""
+    k = n_clusters
+    panel, c_sq = pad_clusters(centroids, x.dtype)
+    c_ext = rescore_table(centroids)
+    chunk = max(1, REFERENCE_CHUNK_ELEMENTS // k)
+    aids, bests = [], []
+    for start in range(0, x.shape[0], chunk):
+        xb = x[start:start + chunk]
+        s = D.scores(xb, panel.T, c_sq, metric)
+        best, aid, _d2 = D.argmin_rescored(s, k, xb, c_ext)
+        aids.append(aid)
+        bests.append(best)
+    aid = torch.where(valid, torch.cat(aids),
+                      torch.tensor(k, dtype=torch.int32, device=x.device))
+    changed = (aid != prev_assign).sum(dtype=torch.int32)
+    return aid, torch.cat(bests), changed
+
+
+def near_ties(x, centroids, metric: D.DistanceMetric):
+    """(n,) bool: rows where fp32 sums in another order may rightly pick
+    another centroid than the plain twin, because one of the assignment's
+    comparisons is within rounding: consecutive plain top-3 scores within
+    1e-5 * max(1, |s1|) of each other (s1 vs s2 orders the candidates, s2
+    vs s3 picks the second), or the rescore's exact squared distances of
+    the two candidates within 1e-5 * max(1, d2).  For bf16 the last is not
+    implied by the first: the scores use the bf16-rounded panel, the
+    rescore the fp32 centroids."""
+    k = centroids.shape[0]
+    if k < 2:
+        return torch.zeros((x.shape[0],), dtype=torch.bool, device=x.device)
+    panel, c_sq = pad_clusters(centroids, x.dtype)
+    c_ext = rescore_table(centroids)
+    chunk = max(1, REFERENCE_CHUNK_ELEMENTS // k)
+    out = []
+    for start in range(0, x.shape[0], chunk):
+        xb = x[start:start + chunk]
+        s = D.scores(xb, panel.T, c_sq, metric)
+        top, idx = torch.topk(s, min(3, k), dim=1, largest=False)
+        tie = ((top[:, 1:] - top[:, :-1])
+               <= 1e-5 * top[:, :1].abs().clamp(min=1)).any(dim=1)
+        diff = xb.float()[:, None, :] - c_ext[idx[:, :2]]
+        d2 = torch.sum(diff * diff, dim=-1)
+        out.append(tie | ((d2[:, 1] - d2[:, 0]).abs()
+                          <= 1e-5 * d2.min(dim=1).values.clamp(min=1)))
+    return torch.cat(out)
+
+
+def segment_sum_reference(x, aid, k: int):
+    """(sums (K, F) fp32, counts (K,) int32) of x over the rows with
+    aid < k."""
+    keep = aid < k
+    idx = aid[keep].long()
+    sums = torch.zeros((k, x.shape[1]), dtype=torch.float32, device=x.device)
+    sums.index_add_(0, idx, x[keep].float())
+    counts = torch.bincount(idx, minlength=k).to(torch.int32)
+    return sums, counts
+
+
+def fused_lloyd_pass_reference(x, valid, prev_assign, centroids, *,
+                               n_clusters: int, metric: D.DistanceMetric):
+    """Plain twin of :func:`fused_lloyd_pass`."""
+    aid, best, changed = assign_only_pass_reference(
+        x, valid, prev_assign, centroids, n_clusters=n_clusters,
+        metric=metric)
+    sums, counts = segment_sum_reference(x, aid, n_clusters)
+    return aid, best, sums, counts, changed
