@@ -1,27 +1,41 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's Lloyd path once on one CUDA card.
+"""Drive the PyTorch/CUDA port's Lloyd and kNN paths once on one CUDA card.
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels from ``kmcuda_torch/csrc`` (nvcc, at first
-use), holds each against its plain-torch twin on the card, then runs the
-public ``kmeans_cuda`` at the reference benchmark's headline configuration
-(100,000 x 256 fp32, k=1024, random init, seed 1, tolerance 0.002, 15
-iterations), a 5-iteration restart from its centroids (so the low-churn
-arm runs) and a 1,000,000 x 256 bf16 run, and checks what comes out.
+Builds the hand-written kernels from ``kmcuda_torch/csrc`` (nvcc, one
+process per source, at first use) and holds each against its plain-torch
+twin on the card.
+
+Lloyd: the public ``kmeans_cuda`` at the reference benchmark's headline
+configuration (100,000 x 256 fp32, k=1024, random init, seed 1, tolerance
+0.002, 15 iterations), a 5-iteration restart from its centroids (so the
+low-churn arm runs) and a 1,000,000 x 256 bf16 run.
+
+kNN: the JAX bench's configuration (1,000,000 x 256 fp32 blobs, k=1024
+clusters clustered from the blob centers, 16 neighbours) through the
+public ``knn_cuda``, its recall against a brute force on the card, and the
+same call on a CUDA and a CPU tensor of the 13K blob fixture.
+
 Prints the card's name and power limit beside every time, a JSON line of
 the kernels, and as its last line a JSON object with ``"ok": true``.  Any
 failure raises, so the exit code is non-zero; so it is without a CUDA
 device, or outside a checkout of the repository.
 
-Tolerances (kernel vs plain twin on the same tensors): assignments equal
-except at near-ties (``ops.assign_kernels.near_ties``: consecutive plain
-top-3 scores within 1e-5 * max(1, |s1|), or the rescore's two exact
-squared distances within 1e-5 * max(1, d2)); best scores rtol 1e-5; sums
-rtol 1e-5 and atol 1e-5 * mean |x| (fp32 sums in another order), always
-against the plain segment sum of the kernel's own assignment; counts and
-reassignment counts equal to the plain count of the kernel's assignment,
-and to the plain twin's where the assignments are equal.
+Tolerances (kernel vs plain twin on the same tensors):
+- B1/B2: assignments equal except at near-ties
+  (``ops.assign_kernels.near_ties``: consecutive plain top-3 scores within
+  1e-5 * max(1, |s1|), or the rescore's two exact squared distances within
+  1e-5 * max(1, d2)); best scores rtol 1e-5; sums rtol 1e-5 and atol
+  1e-5 * mean |x| (fp32 sums in another order), always against the plain
+  segment sum of the kernel's own assignment; counts and reassignment
+  counts equal to the plain count of the kernel's assignment, and to the
+  plain twin's where the assignments are equal.
+- B3 (``ops.knn_kernels.compare_walks``, after the shared exact rescore):
+  per-chunk examined counts equal unless the step where the walks part has
+  its bound within 1e-5 relative of tau; neighbour ids equal except where
+  their fp64 distance profiles agree to rtol 1e-6 (ties); distances
+  rtol 1e-6 where the ids are equal.
 """
 
 import contextlib
@@ -34,14 +48,21 @@ import time
 import numpy as np
 import torch
 
-from kmcuda_torch import kmeans_cuda
+from kmcuda_torch import kmeans_cuda, knn_cuda
+from kmcuda_torch.models import knn as TK
+from kmcuda_torch.models.problem import prepare
 from kmcuda_torch.ops import _build
 from kmcuda_torch.ops import assign_kernels as K
 from kmcuda_torch.ops import distance as D
+from kmcuda_torch.ops import knn_kernels as KK
+from kmcuda_torch.utils.logging import Logger
 
 HEADLINE = dict(n=100_000, f=256, k=1024)
 BF16_RUN = dict(n=1_000_000, f=256, k=1024)
 RAGGED = dict(n=100_003, f=250, k=1000)
+KNN_BENCH = dict(n=1_000_000, f=256, k=1024, kn=16)
+KNN_RAGGED = dict(n=100_003, f=250, k=1000, kn=10)
+KNN_WIDE = dict(n=16_384, f=2_560, k=16, kn=200)
 
 
 def card_line() -> str:
@@ -325,6 +346,8 @@ def main() -> int:
 
     check_small_input_agreement()
 
+    knn = knn_phase(tag)
+
     kernels = []
     for name, line in (("fused_lloyd_pass", 81), ("assign_only_pass", 127)):
         kernels.append({
@@ -333,6 +356,10 @@ def main() -> int:
             "replaces": "kmcuda_tpu/ops/assign_pallas.py:%d" % line,
             "launches": total[name], "max_abs_err": errs[name],
             "ms": times[name][0], "plain_ms": times[name][1]})
+    kernels.append({
+        "name": "knn_walk", "route": "cuda",
+        "source": "kmcuda_torch/csrc/knn_walk.cu",
+        "replaces": "kmcuda_tpu/ops/knn_pallas.py:150", **knn})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -371,6 +398,253 @@ def check_small_input_agreement():
     print("small input: card and CPU give identical assignments and "
           "iteration logs (%d iterations), centroids within rtol 1e-5 / "
           "atol 1e-6" % count_iterations(log_gpu), flush=True)
+
+
+def blobs_on_card(n, f, k, seed, metric=D.DistanceMetric.L2, nan_rows=0):
+    """The JAX bench's kNN data (bench.py:272-278), made on the card:
+    centers = U(0, 1) * 10, x = centers[which] + 0.5 * N(0, 1).  Cosine
+    normalizes rows and centers; ``nan_rows`` random rows become NaN."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+    centers = torch.rand(k, f, generator=g, device=dev) * 10.0
+    which = torch.randint(0, k, (n,), generator=g, device=dev)
+    x = centers[which] + 0.5 * torch.randn(n, f, generator=g, device=dev)
+    if metric == D.DistanceMetric.COSINE:
+        x = x / x.norm(dim=1, keepdim=True)
+        centers = centers / centers.norm(dim=1, keepdim=True)
+    if nan_rows:
+        x[torch.randperm(n, generator=g, device=dev)[:nan_rows]] = \
+            float("nan")
+    return x, centers
+
+
+def cluster(x, centers, metric):
+    """k-means from the blob centers, 5 iterations, through the public
+    call: the clustering a kNN user would feed in."""
+    return kmeans_cuda(x, centers.shape[0], init=centers, tolerance=0.01,
+                       yinyang_t=0, max_iterations=5, metric=metric)
+
+
+def knn_plan(x, c, a, metric):
+    """The kNN layout of (x, c, a), as ``knn_cuda`` plans it."""
+    p = prepare(x, c.shape[0], metric, x.device, Logger(0))
+    return TK.plan_pruned(p, c.float(), a)
+
+
+def check_walk(label, plan, k, kn, metric, chunk_base, n_chunks):
+    """B3 vs its plain twin on one batch of a layout; returns (the
+    comparison's numbers, the walk's (args, kwargs))."""
+    args, kw = TK.batch_walk_inputs(plan, chunk_base, n_chunks,
+                                    k_neighbors=kn, n_clusters=k,
+                                    metric=metric)
+    out = KK.compare_walks(args, kw)
+    torch.cuda.synchronize()
+    in_smem = kw["kk"] * kw["chunk"] * 8 <= KK.SMEM_BUFFER_BYTES
+    print("check B3 %s: ok; chunks %d..%d of %d (kk %d, chunk %d, tile_m "
+          "%d, group %d, buffer in %s); %d tie rows, %d chunks' examined "
+          "differ, examined %d, max |d dist| %.3g"
+          % (label, chunk_base, chunk_base + n_chunks - 1,
+             plan.m_total // plan.q_chunk, kw["kk"], kw["chunk"],
+             plan.tile_m, plan.group, "shared memory" if in_smem
+             else "global scratch", out["tie_rows"], out["chunks_differ"],
+             out["examined"], out["max_abs_err"]), flush=True)
+    return out, args, kw
+
+
+def check_recall(x, nb, kn, nq=1024, seed=13):
+    """recall@kn and tie-aware recall of ``nb`` on nq random queries
+    against a chunked fp32 brute force on the card (TF32 off) with a 3 * kn
+    window, adjudicated in fp64 as bench.py:314-367 does: a returned slot
+    counts when its fp64 distance is within one fp32 tie window of the true
+    profile's slot."""
+    n = x.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qi = torch.randperm(n, generator=g, device=x.device)[:nq]
+    kc = 3 * kn
+    x_sq = D.row_sq_norms(x)
+    exact = []
+    for s in range(0, nq, 256):
+        qb = qi[s:s + 256]
+        sq = x_sq[qb, None] + x_sq[None, :] - 2.0 * D.matmul_f32(x[qb], x.T)
+        sq[torch.arange(qb.numel(), device=x.device), qb] = float("inf")
+        exact.append(torch.topk(sq, kc, dim=1, largest=False).indices)
+        del sq
+    exact = torch.cat(exact)
+    got = nb[qi].long()
+    recall = float(np.mean([
+        len(set(e) & set(r)) / kn for e, r in zip(
+            exact[:, :kn].tolist(), got.tolist())]))
+    union = torch.cat([exact, got], dim=1)
+    d64 = torch.linalg.norm(
+        x[union].double() - x[qi].double()[:, None, :], dim=2)
+    order = torch.argsort(union, dim=1, stable=True)
+    srt = torch.gather(union, 1, order)
+    dup_sorted = torch.zeros_like(srt, dtype=torch.bool)
+    dup_sorted[:, 1:] = srt[:, 1:] == srt[:, :-1]
+    dup = torch.zeros_like(dup_sorted).scatter_(1, order, dup_sorted)
+    true_prof = torch.sort(torch.where(dup, float("inf"), d64),
+                           dim=1).values[:, :kn]
+    got_prof = torch.sort(d64[:, kc:], dim=1).values
+    ok = got_prof <= true_prof * (1.0 + 1e-5) + 1e-6
+    return recall, float(ok.double().mean())
+
+
+def time_walk(tag, args, kw, reps=3):
+    """B3 and walk_reference on one batch, in turns (plain, kernel,
+    kernel, plain); returns (ms, plain_ms)."""
+    p1 = time_ms(lambda: KK.walk_reference(*args, **kw), reps)
+    k1 = time_ms(lambda: KK.walk(*args, **kw), reps)
+    k2 = time_ms(lambda: KK.walk(*args, **kw), reps)
+    p2 = time_ms(lambda: KK.walk_reference(*args, **kw), reps)
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    print("%s time knn_walk %d chunks x %d rows, f=%d, kk=%d: kernel %.4f "
+          "ms, plain %.4f ms (%.4f/%.4f, %.4f/%.4f)"
+          % (tag, args[0].shape[0] // kw["chunk"], kw["chunk"],
+             args[0].shape[1], kw["kk"], ms, plain_ms, k1, k2, p1, p2),
+          flush=True)
+    return ms, plain_ms
+
+
+def fraction(log: str) -> float:
+    lines = [l for l in log.splitlines() if l.startswith("calculated ")]
+    if not lines:
+        raise AssertionError("no 'calculated ... of all the distances' line")
+    return float(lines[-1].split()[1])
+
+
+def knn_phase(tag):
+    """kNN: B3 against its twin on three layouts, the public call at the
+    bench shape (launch count, wall, examined fraction), its exactness,
+    and the card against the CPU on the 13K fixture.  Returns the kernel
+    line's numbers for B3."""
+    L2, COS = D.DistanceMetric.L2, D.DistanceMetric.COSINE
+    b = KNN_BENCH
+    x, centers = blobs_on_card(b["n"], b["f"], b["k"], 11)
+    c, a = cluster(x, centers, L2)
+    torch.cuda.synchronize()
+    errs = []
+
+    # 1(a): 32 chunks from the middle of the bench layout, then 5: timing
+    plan = knn_plan(x, c, a, L2)
+    nchunks = plan.m_total // plan.q_chunk
+    out, args, kw = check_walk("1000000x256 fp32 L2 kn=16", plan, b["k"],
+                               b["kn"], L2, nchunks // 2 - 16, 32)
+    errs.append(out["max_abs_err"])
+    ms, plain_ms = time_walk(tag, args, kw)
+    del plan, args, kw
+
+    # 2: the public call; the walk launch count is read from this run
+    KK.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        nb = knn_cuda(b["kn"], x, c, a, verbosity=1)
+    torch.cuda.synchronize()
+    launches = KK.LAUNCHES["knn_walk"]
+    print(buf.getvalue(), end="", flush=True)
+    if launches == 0:
+        raise AssertionError("knn_cuda: knn_walk never launched")
+    frac = fraction(buf.getvalue())
+    if nb.shape != (b["n"], b["kn"]) or nb.dtype != torch.int32 \
+            or int(nb.min()) < 0 or int(nb.max()) >= b["n"]:
+        raise AssertionError("knn_cuda: neighbours out of shape or range")
+    if bool((nb == torch.arange(b["n"], device=nb.device)[:, None]).any()):
+        raise AssertionError("knn_cuda: a sample is its own neighbour")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        knn_cuda(b["kn"], x, c, a)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    print("%s wall knn_cuda %dx%d fp32 k=%d %d-NN: %.4f s (min of 3: %s), "
+          "examined fraction %.6f, knn_walk launches %d"
+          % (tag, b["n"], b["f"], b["k"], b["kn"], min(walls),
+             ", ".join("%.4f" % w for w in walls), frac, launches),
+          flush=True)
+
+    # 3: exactness at 1M
+    recall, tie_recall = check_recall(x, nb, b["kn"])
+    print("1M exactness: recall@16 %.6f, tie-aware recall@16 %.6f on 1024 "
+          "queries" % (recall, tie_recall), flush=True)
+    if tie_recall != 1.0:
+        raise AssertionError("tie-aware recall %.6f != 1" % tie_recall)
+    del x, c, a, nb
+
+    # 1(b): ragged, 10 NaN rows, fp32 and bf16 x L2 and cosine, 64 chunks
+    r = KNN_RAGGED
+    for metric in (L2, COS):
+        x, centers = blobs_on_card(r["n"], r["f"], r["k"], 5, metric,
+                                   nan_rows=10)
+        c, a = cluster(x, centers, metric)
+        for dtype in (torch.float32, torch.bfloat16):
+            # bf16 storage reuses the fp32 clustering: a bf16-rounded unit
+            # vector fails the cosine norm probe of the public call
+            plan = knn_plan(x.to(dtype), c, a, metric)
+            out, _args, _kw = check_walk(
+                "%dx%d k=%d %s %s kn=%d" % (r["n"], r["f"], r["k"],
+                                            str(dtype)[6:], metric.name,
+                                            r["kn"]),
+                plan, r["k"], r["kn"], metric, 0, 64)
+            errs.append(out["max_abs_err"])
+            del plan
+
+    # 1(c): f = 2560 and kk = 300, past both bounds of the TPU kernel
+    w = KNN_WIDE
+    x, centers = blobs_on_card(w["n"], w["f"], w["k"], 7)
+    c, a = cluster(x, centers, L2)
+    plan = knn_plan(x, c, a, L2)
+    out, _args, _kw = check_walk(
+        "%dx%d fp32 k=%d L2 kn=%d" % (w["n"], w["f"], w["k"], w["kn"]),
+        plan, w["k"], w["kn"], L2, 0, plan.m_total // plan.q_chunk)
+    errs.append(out["max_abs_err"])
+    del x, c, a, plan
+
+    check_small_knn_agreement()
+    return {"launches": launches, "max_abs_err": max(errs), "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def check_small_knn_agreement():
+    """Whole call: knn_cuda on a CUDA and on a CPU tensor of the 13K blob
+    fixture (tests/test_knn.py), from one clustering, gives neighbours
+    identical off fp64 ties and identical 'calculated' lines, and the card
+    run launches the walk kernel."""
+    rng = np.random.RandomState(0)
+    xs = np.empty((13000, 2), dtype=np.float32)
+    xs[:2000] = rng.rand(2000, 2) + [0, 0.5]
+    xs[2000:4000] = rng.rand(2000, 2) + [0, 1.5]
+    xs[4000:6000] = rng.rand(2000, 2) - [0, 0.5]
+    xs[6000:8000] = rng.rand(2000, 2) + [0.5, 0]
+    xs[8000:10000] = rng.rand(2000, 2) - [0.5, 0]
+    xs[10000:] = rng.rand(3000, 2) * 5 - [2, 2]
+    x = torch.from_numpy(xs)
+    c, a = kmeans_cuda(x, 50, init=x[rng.choice(13000, 50, replace=False)],
+                       tolerance=0.01, yinyang_t=0)
+    KK.reset_launch_counts()
+    logs = []
+    outs = []
+    for dev in ("cuda", "cpu"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            outs.append(knn_cuda(10, x.to(dev), c.to(dev), a.to(dev),
+                                 verbosity=1).cpu())
+        logs.append(buf.getvalue())
+        if dev == "cuda":
+            launches = KK.LAUNCHES["knn_walk"]
+    if logs[0] != logs[1]:
+        raise AssertionError("card and CPU kNN logs differ: %r vs %r"
+                             % (logs[0], logs[1]))
+    if launches == 0:
+        raise AssertionError("13K kNN: knn_walk never launched")
+    rows = torch.nonzero((outs[0] != outs[1]).any(dim=1))[:, 0]
+    x64 = x.double()
+    for r in rows.tolist():
+        prof = [torch.sort(torch.linalg.norm(x64[o[r].long()] - x64[r],
+                                             dim=1)).values for o in outs]
+        if not torch.allclose(prof[0], prof[1], rtol=1e-6, atol=0):
+            raise AssertionError("13K kNN: row %d differs off ties" % r)
+    print("small kNN input: card and CPU agree (%d tie rows), identical "
+          "log: %s" % (rows.numel(), logs[0].strip()), flush=True)
 
 
 if __name__ == "__main__":

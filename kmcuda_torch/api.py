@@ -8,19 +8,25 @@ The call shape of ``kmcuda_tpu.api`` and of the reference binding:
                  donate_samples=False)
         -> (centroids, assignments[, average_distance])
 
+    knn_torch(k, samples, centroids, assignments, metric="L2", device=0,
+              verbosity=0, donate_samples=False)
+        -> neighbors
+
 Devices are explicit, with no fallback:
 - a ``torch.Tensor`` runs on its own device and comes back as tensors on
   that device (centroids fp32, or the input dtype for fp16/bf16 input;
-  assignments ``torch.int32``, because torch has almost no uint32
-  arithmetic);
+  assignments and neighbours ``torch.int32``, because torch has almost no
+  uint32 arithmetic; a neighbour row of a non-finite sample is -1);
 - a numpy array runs on the CUDA device the ``device`` bitmask selects and
-  comes back as numpy (assignments ``uint32``); with no CUDA device it
-  raises :class:`KMTPUNoSuchDevice`.
+  comes back as numpy (assignments and neighbours ``uint32``, the
+  neighbour sentinel 0xFFFFFFFF); with no CUDA device it raises
+  :class:`KMTPUNoSuchDevice`.
 
-Ported so far: Lloyd with random or imported init, L2 and angular, fp32
-and fp16/bf16 input (bf16 storage, fp32 accumulation).  k-means++ and
-AFK-MC2 init, Yinyang and kNN raise ``NotImplementedError`` naming their
-ROADMAP item; ``yinyang_t > 0`` runs Lloyd, whose results Yinyang equals.
+Ported so far: Lloyd with random or imported init and the pruned exact
+kNN, for L2 and angular, fp32 and fp16/bf16 input (bf16 storage, fp32
+accumulation).  k-means++ and AFK-MC2 init and Yinyang raise
+``NotImplementedError`` naming their ROADMAP item; ``yinyang_t > 0`` runs
+Lloyd, whose results Yinyang equals.
 """
 
 import time
@@ -30,6 +36,7 @@ import torch
 
 from kmcuda_torch import config
 from kmcuda_torch.models import initialization as I
+from kmcuda_torch.models import knn as KNN
 from kmcuda_torch.models import lloyd as L
 from kmcuda_torch.models.problem import prepare
 from kmcuda_torch.ops.distance import DistanceMetric, disable_tf32, metrics
@@ -145,7 +152,41 @@ def kmeans_torch(samples, clusters, tolerance=0.01, init="k-means++",
     return out_c, out_a, ad
 
 
+def _knn_assignments(assignments, device) -> torch.Tensor:
+    """int64 cluster ids on ``device`` from an int tensor (the port's
+    int32) or anything ``numpy.asarray`` takes (the reference's uint32)."""
+    if isinstance(assignments, torch.Tensor):
+        return assignments.to(device=device, dtype=torch.int64)
+    return torch.from_numpy(
+        np.asarray(assignments).astype(np.int64)).to(device)
+
+
 def knn_torch(k, samples, centroids, assignments, metric="L2", device=0,
               verbosity=0, donate_samples=False):
-    """Exact k-nearest-neighbors: not ported yet."""
-    raise NotImplementedError("knn is not ported yet (ROADMAP §A6)")
+    """Exact k-nearest neighbours of every sample, pruned by the k-means
+    structure (``centroids``, ``assignments``).  Returns (n, k) neighbour
+    indices sorted by ascending distance, excluding the sample itself.
+    Rows with non-finite features (k-means gave them the id
+    ``len(centroids)``) come back as -1 in the int32 tensor a tensor input
+    gets, and as 0xFFFFFFFF in the uint32 array a numpy input gets."""
+    n, _features, k, n_clusters = V.check_knn_args(
+        k, samples, centroids, assignments, device)
+    metric_e = _parse_metric(metric)
+    logger = Logger(verbosity)
+    dev = device_for(samples, int(device), logger)
+    if dev.type == "cuda":
+        disable_tf32()
+    problem = prepare(samples, n_clusters, metric_e, dev, logger,
+                      donate=bool(donate_samples))
+    if metric_e == DistanceMetric.COSINE:
+        _check_cosine(problem)
+    if isinstance(centroids, torch.Tensor):
+        cents = centroids.to(device=dev, dtype=torch.float32)
+    else:
+        cents = torch.tensor(np.asarray(centroids, dtype=np.float32),
+                             device=dev)
+    nbr, _dist = KNN.run(problem, cents, _knn_assignments(assignments, dev),
+                         k)
+    if isinstance(samples, torch.Tensor):
+        return nbr
+    return nbr.cpu().numpy().astype(np.uint32)

@@ -1,8 +1,10 @@
-"""Constants the Lloyd path reads, with the values of ``kmcuda_tpu.config``.
+"""Constants the Lloyd and kNN paths read, with the values of
+``kmcuda_tpu.config``.
 
 Only what this package runs is here; the TPU tile and lane knobs have no
 counterpart on the GPU (the kernels mask their own ragged edges, so
-nothing is padded to chunk or lane multiples).
+nothing is padded to chunk or lane multiples).  The kNN layout keeps the
+JAX package's tile sizes, so both packages plan the same layout.
 """
 
 #: Yinyang group count = YINYANG_T * clusters (reference default).
@@ -37,3 +39,24 @@ PAD_PENALTY = 1e30
 #: Above this fraction of previously moved rows an iteration runs the dense
 #: arm (full segment sum) instead of the compacted delta.
 DELTA_DENSE_FRACTION = 0.35
+
+# ---- kNN layout (models/knn.plan_pruned) -----------------------------------
+
+#: Below 2 * LANE samples kNN runs the brute-force search.
+LANE = 128
+
+#: Queries per chunk of the pruned walk (the pruning granularity), capped
+#: by the member tile; and member-tile rows of the brute-force search.
+KNN_TILE_Q = 512
+KNN_TILE_M = 2048
+
+#: Member rows per step of the pruned walk (group = this / tile_m tiles).
+KNN_TILE_GROUP_ROWS = 4096
+
+#: Queries per host batch of the pruned search.  Results do not depend on
+#: it; it bounds the work of one batch's walk launch.
+KNN_QUERY_BATCH = 65536
+
+#: Above this many clusters the layout relabels clusters by a projection
+#: sort instead of the greedy nearest-neighbour tour.
+KNN_TOUR_MAX_K = 4096

@@ -3,8 +3,10 @@
 ``kmcuda_tpu`` returns numpy arrays (fp32 or fp16 centroids, uint32
 assignments with the invalid marker k).  :func:`state_from_jax` turns them
 into this package's tensors, e.g. to hand JAX centroids to
-``kmeans_torch(..., init=centroids)``.  It imports nothing of JAX: it takes
-anything ``numpy.asarray`` takes.
+``kmeans_torch(..., init=centroids)``; :func:`plan_from_jax` turns a kNN
+layout plan of ``kmcuda_tpu.models.knn.plan_pruned`` into this package's
+``SearchPlan``, so both searches can run on one layout.  Neither imports
+JAX: they take anything ``numpy.asarray`` takes.
 """
 
 import numpy as np
@@ -23,3 +25,37 @@ def state_from_jax(centroids, assignments=None, *, device):
     if a.size and (a.min() < 0 or a.max() > np.iinfo(np.int32).max):
         raise ValueError("assignment ids do not fit int32")
     return cent, torch.tensor(a, dtype=torch.int32, device=device)
+
+
+def _tensor(arr, dtype, device) -> torch.Tensor:
+    a = np.asarray(arr)
+    if a.dtype.name == "bfloat16":
+        # numpy holds JAX's bf16 as its own dtype: move the bits
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.tensor(a.astype(np.int64) if a.dtype.kind in "ui" else a,
+                        device=device).to(dtype)
+
+
+def plan_from_jax(plan, *, device):
+    """The port's ``models.knn.SearchPlan`` from a JAX ``SearchPlan``, on
+    ``device``: the same layout in the port's dtypes (int64 index tables,
+    int32 positions and cluster ids, the members in their storage
+    dtype)."""
+    from kmcuda_torch.models.knn import SearchPlan
+
+    xm = np.asarray(plan.xm)
+    return SearchPlan(
+        tile_m=int(plan.tile_m), q_chunk=int(plan.q_chunk),
+        n_tiles=int(plan.n_tiles), m_total=int(plan.m_total),
+        group=int(plan.group),
+        xm=_tensor(xm, torch.bfloat16 if xm.dtype.name == "bfloat16"
+                   else torch.float32, device),
+        m_spos=_tensor(plan.m_spos, torch.int32, device),
+        q_assign=_tensor(plan.q_assign, torch.int32, device),
+        r_ext=_tensor(plan.r_ext, torch.float32, device),
+        c_rank=_tensor(plan.c_rank, torch.float32, device),
+        inc_c=_tensor(plan.inc_c, torch.int64, device),
+        inc_t=_tensor(plan.inc_t, torch.int64, device),
+        tile_nvalid=_tensor(plan.tile_nvalid, torch.int32, device),
+        sorder=_tensor(plan.sorder, torch.int64, device))

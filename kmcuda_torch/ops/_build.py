@@ -1,11 +1,11 @@
 """Build and load the CUDA kernel library.
 
-The sources under ``kmcuda_torch/csrc/`` are compiled with ``nvcc`` into a
-shared library with a plain C interface and loaded with ``ctypes``, at
-first use, into ``build/kmcuda_torch/`` at the root of the checkout.  The
-library's name carries a hash of the sources and flags, so an edit
-rebuilds.  A failed build raises with the compiler's output; there is no
-fallback.
+The sources under ``kmcuda_torch/csrc/`` are compiled with ``nvcc``, one
+process per source, all started together, and linked into a shared
+library with a plain C interface, loaded with ``ctypes``, at first use,
+into ``build/kmcuda_torch/`` at the root of the checkout.  The library's
+name carries a hash of the sources and flags, so an edit rebuilds.  A
+failed build raises with the compiler's output; there is no fallback.
 """
 
 import ctypes
@@ -21,7 +21,7 @@ from kmcuda_torch.utils.errors import KMTPURuntimeError
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parents[1] / "build" / "kmcuda_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -29,6 +29,7 @@ _I = ctypes.c_int64
 _SIGNATURES = {
     "kmt_assign": [_P] * 9 + [_I] * 5 + [_P],
     "kmt_segment_sum": [_P] * 5 + [_I] * 5 + [_P],
+    "kmt_knn_walk": [_P] * 17 + [_I] * 12 + [_P],
 }
 
 _lock = threading.Lock()
@@ -65,13 +66,25 @@ def build() -> pathlib.Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = "%s.%d" % (out.stem, os.getpid())
+    cus = [src for src in sources() if src.suffix == ".cu"]
+    objs = [str(BUILD_DIR / ("%s.%s.o" % (tag, src.stem))) for src in cus]
+    cmds = [[nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            for obj, src in zip(objs, cus)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise KMTPURuntimeError("nvcc failed (%d): %s\n%s" % (
+                proc.returncode, " ".join(cmd), log))
     tmp = out.with_suffix(".%d.tmp" % os.getpid())
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    link = [nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs]
+    proc = subprocess.run(link, capture_output=True, text=True)
     if proc.returncode != 0:
         raise KMTPURuntimeError("nvcc failed (%d): %s\n%s%s" % (
-            proc.returncode, " ".join(cmd), proc.stdout, proc.stderr))
+            proc.returncode, " ".join(link), proc.stdout, proc.stderr))
     os.replace(tmp, out)
     return out
 

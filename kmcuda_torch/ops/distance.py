@@ -140,6 +140,19 @@ def argmin_rescored(score, k: int, xb, c_ext):
     return best, aid, torch.minimum(d2a, d2b)
 
 
+def pairwise_distance(a, b, metric: DistanceMetric):
+    """Dense fp32 true-distance matrix between two small row sets (the kNN
+    centroid distance matrix), TF32 off on CUDA."""
+    af = a.float()
+    bf = b.float()
+    prod = matmul_f32(af, bf.T)
+    if metric == DistanceMetric.L2:
+        sq = (row_sq_norms(af)[:, None] + row_sq_norms(bf)[None, :]
+              - 2.0 * prod)
+        return torch.sqrt(torch.clamp(sq, min=0.0))
+    return torch.arccos(torch.clamp(prod, -1.0, 1.0))
+
+
 def normalize_centroids(sums, counts, metric: DistanceMetric):
     """Mean for L2, L2-renormalization for angular.  Empty clusters yield
     NaN centroids by design (the reference documents it as a feature).

@@ -58,6 +58,33 @@ def check_kmeans_args(samples, clusters, tolerance, yinyang_t, seed, device):
     return n, features, clusters
 
 
+def check_knn_args(k, samples, centroids, assignments, device):
+    n, features = check_samples(samples)
+    if isinstance(k, bool) or not isinstance(k, numbers.Integral):
+        raise TypeError("k must be an integer, got %r" % (k,))
+    k = int(k)
+    if k <= 0:
+        raise KMTPUInvalidArguments("k must be positive")
+    if k >= n:
+        raise KMTPUInvalidArguments("k must be < number of samples")
+    cshape = getattr(centroids, "shape", None)
+    if cshape is None or len(cshape) != 2:
+        raise TypeError("centroids must be a 2D array")
+    if int(cshape[1]) != features:
+        raise KMTPUInvalidArguments(
+            "centroids features (%d) != samples features (%d)"
+            % (int(cshape[1]), features))
+    ashape = getattr(assignments, "shape", None)
+    if ashape is None or len(ashape) != 1:
+        raise TypeError("assignments must be a 1D array")
+    if int(ashape[0]) != n:
+        raise KMTPUInvalidArguments(
+            "assignments size (%d) != samples size (%d)" % (int(ashape[0]), n))
+    if not isinstance(device, numbers.Integral) or int(device) < 0:
+        raise TypeError("device must be a non-negative integer bitmask")
+    return n, features, k, int(cshape[0])
+
+
 def check_cosine_normalized(x_sq_probe) -> bool:
     """The reference probes 3 samples for unit L2 norm within
     [0.99999, 1.00001] before angular runs."""

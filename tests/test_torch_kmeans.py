@@ -214,8 +214,6 @@ def test_not_ported_yet_raises(samples, monkeypatch):
     for init in ("kmeans++", ("afkmc2", 10)):
         with pytest.raises(NotImplementedError, match="§A4"):
             kmeans_cuda(x, 50, init=init, yinyang_t=0)
-    with pytest.raises(NotImplementedError, match="§A6"):
-        knn_cuda(4, x, x[:50], torch.zeros(13000, dtype=torch.int32))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="§A7"):
         kmeans_cuda(x, 50, init="random", yinyang_t=0, device=3)
