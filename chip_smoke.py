@@ -1,21 +1,34 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's Lloyd and kNN paths once on one CUDA card.
+"""Drive the PyTorch/CUDA port's k-means and kNN paths once on one CUDA card.
 
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``kmcuda_torch/csrc`` (nvcc, one
 process per source, at first use) and holds each against its plain-torch
-twin on the card.
+twin on the card; B2 must also give a gathered subset of the rows bitwise
+the results it gives them in a launch over all rows (the Yinyang loop
+rests on it).
 
 Lloyd: the public ``kmeans_cuda`` at the reference benchmark's headline
 configuration (100,000 x 256 fp32, k=1024, random init, seed 1, tolerance
 0.002, 15 iterations), a 5-iteration restart from its centroids (so the
 low-churn arm runs) and a 1,000,000 x 256 bf16 run.
 
-kNN: the JAX bench's configuration (1,000,000 x 256 fp32 blobs, k=1024
-clusters clustered from the blob centers, 16 neighbours) through the
-public ``knn_cuda``, its recall against a brute force on the card, and the
-same call on a CUDA and a CPU tensor of the 13K blob fixture.
+The default call, ``kmeans_cuda(x, 1024)`` (k-means++ and Yinyang), on the
+headline data (seed 1, tolerance 0.002, at most 60 iterations) against
+the same call with ``yinyang_t=0``: identical assignments, centroids and
+iteration lines, and B2 launched by the Yinyang loop (both walls are
+timed from one imported k-means++ start); the same at
+1,000,000 x 256 bf16 (random init, tolerance 0, 30 iterations); AFK-MC2
+at the JAX bench's spherical configuration (1,000,000 x 256 unit rows,
+cosine, k=1024, m=100); and Yinyang on a CUDA and a CPU tensor of the 13K
+blob fixture from one start.
+
+kNN: the JAX bench's configuration (1,000,000 x 256 fp32 blobs, k=1024,
+16 neighbours) through the public ``knn_cuda``, clustered from the blob
+centers and, as the JAX bench seeds it, by AFK-MC2 (m=200); recall
+against a brute force on the card; and the same call on a CUDA and a CPU
+tensor of the 13K blob fixture.
 
 Prints the card's name and power limit beside every time, a JSON line of
 the kernels, and as its last line a JSON object with ``"ok": true``.  Any
@@ -23,6 +36,11 @@ failure raises, so the exit code is non-zero; so it is without a CUDA
 device, or outside a checkout of the repository.
 
 Tolerances (kernel vs plain twin on the same tensors):
+- B2 on a gathered subset of the rows: assignments and best scores
+  bitwise equal to B2's over all rows.
+- Yinyang against Lloyd: bitwise equal (centroids NaN-aware); card
+  against CPU: identical assignments and iteration lines, centroids
+  within rtol 1e-5 / atol 1e-6.
 - B1/B2: assignments equal except at near-ties
   (``ops.assign_kernels.near_ties``: consecutive plain top-3 scores within
   1e-5 * max(1, |s1|), or the rescore's two exact squared distances within
@@ -49,7 +67,9 @@ import numpy as np
 import torch
 
 from kmcuda_torch import kmeans_cuda, knn_cuda
+from kmcuda_torch.models import initialization as I
 from kmcuda_torch.models import knn as TK
+from kmcuda_torch.models import yinyang as Y
 from kmcuda_torch.models.problem import prepare
 from kmcuda_torch.ops import _build
 from kmcuda_torch.ops import assign_kernels as K
@@ -63,6 +83,7 @@ RAGGED = dict(n=100_003, f=250, k=1000)
 KNN_BENCH = dict(n=1_000_000, f=256, k=1024, kn=16)
 KNN_RAGGED = dict(n=100_003, f=250, k=1000, kn=10)
 KNN_WIDE = dict(n=16_384, f=2_560, k=16, kn=200)
+SPHERICAL = dict(n=1_000_000, f=256, k=1024, m=100)
 
 
 def card_line() -> str:
@@ -251,6 +272,259 @@ def count_iterations(out: str) -> int:
     return sum(1 for l in out.splitlines() if l.startswith("iteration "))
 
 
+def iteration_lines(out: str) -> list:
+    return [l for l in out.splitlines() if l.startswith("iteration ")]
+
+
+def check_row_independence():
+    """B2 over all rows and over a gathered, sorted random 10% of them
+    gives those rows bitwise the same assignments and best scores, at the
+    headline shape in fp32 and at 1M x 256 in bf16."""
+    for shape, dtype in ((HEADLINE, torch.float32),
+                         (BF16_RUN, torch.bfloat16)):
+        n, f, k = shape["n"], shape["f"], shape["k"]
+        x, valid, prev, c = make_inputs(n, f, k, dtype, D.DistanceMetric.L2,
+                                        False, 3)
+        kw = dict(n_clusters=k, metric=D.DistanceMetric.L2)
+        full = K.assign_only_pass(x, valid, prev, c, **kw)
+        g = torch.Generator(device="cuda").manual_seed(5)
+        rows = torch.sort(torch.randperm(n, generator=g,
+                                         device="cuda")[:n // 10]).values
+        sub = K.assign_only_pass(x[rows], valid[rows], prev[rows], c, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(sub[0], full[0][rows])
+                and torch.equal(sub[1], full[1][rows])):
+            raise AssertionError("B2 on gathered rows differs from B2 over "
+                                 "all rows")
+        if int(sub[2]) != int((full[0][rows] != prev[rows]).sum()):
+            raise AssertionError("B2 on gathered rows miscounts changes")
+        print("check B2 row independence %dx%d k=%d %s: %d gathered rows "
+              "bitwise equal to the launch over all rows"
+              % (n, f, k, str(dtype)[6:], rows.numel()), flush=True)
+        del x, valid, prev, c, full, sub, rows
+
+
+def nan_equal(a, b) -> bool:
+    return bool(torch.equal(torch.isnan(a), torch.isnan(b))
+                and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+
+
+def run_marked(fn):
+    """Run ``fn`` with stdout captured and the launch counts set to 0;
+    returns (result, log, launches, marks): ``marks`` are the counts when
+    the Yinyang grouping starts and ends, so the counts after the second
+    mark are the Yinyang loop's."""
+    marks = []
+    group = Y._group_centroids
+
+    def marked(*args, **kwargs):
+        marks.append(dict(K.LAUNCHES))
+        out = group(*args, **kwargs)
+        marks.append(dict(K.LAUNCHES))
+        return out
+
+    Y._group_centroids = marked
+    K.reset_launch_counts()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        torch.cuda.synchronize()
+    finally:
+        Y._group_centroids = group
+    return out, buf.getvalue(), dict(K.LAUNCHES), marks
+
+
+def yinyang_vs_lloyd(label, x, k, metric, **kw):
+    """The same call with yinyang_t=0.1 and 0 (verbosity 2): identical
+    assignments, centroids and iteration lines, and the Yinyang loop
+    launched B2.  Returns ((c, a), Yinyang log, Yinyang launches, Lloyd
+    launches)."""
+    yy, yy_log, yy_n, marks = run_marked(lambda: kmeans_cuda(
+        x, k, yinyang_t=0.1, metric=metric, verbosity=2, **kw))
+    ll, ll_log, ll_n, _ = run_marked(lambda: kmeans_cuda(
+        x, k, yinyang_t=0, metric=metric, verbosity=2, **kw))
+    print(yy_log, end="", flush=True)
+    if len(marks) != 2:
+        raise AssertionError("%s: the Yinyang loop was not entered" % label)
+    loop = {name: yy_n[name] - marks[1][name] for name in yy_n}
+    if loop["assign_only_pass"] == 0:
+        raise AssertionError("%s: the Yinyang loop never launched B2"
+                             % label)
+    if iteration_lines(yy_log) != iteration_lines(ll_log):
+        raise AssertionError("%s: Yinyang and Lloyd iteration lines differ"
+                             % label)
+    if not (torch.equal(yy[1], ll[1]) and nan_equal(yy[0], ll[0])):
+        raise AssertionError("%s: Yinyang and Lloyd results differ" % label)
+    empty, ties = check_result(x, k, yy[0], yy[1], metric)
+    print("%s: Yinyang == Lloyd bitwise (assignments, centroids, %d "
+          "iteration lines); launches: draft %s, grouping %s, Yinyang loop "
+          "%s, Lloyd run %s; %d empty clusters, %d near-tie rows differ "
+          "from the plain argmin"
+          % (label, count_iterations(yy_log), marks[0],
+             {n: marks[1][n] - marks[0][n] for n in marks[0]}, loop, ll_n,
+             empty, ties), flush=True)
+    return yy, yy_log, yy_n, ll_n
+
+
+def yinyang_profile(log: str) -> str:
+    """The phase times, the Yinyang loop's ms per iteration and its
+    per-iteration candidate/passed counts of a verbosity-2 Yinyang log."""
+    lines = log.splitlines()
+    phases = [l.split("yinyang: ")[1] for l in lines
+              if l.startswith("yinyang: ") and (" phase " in l
+                                                or "main loop" in l)]
+    counts = ["%s/%s" % (l.split()[1], l.split()[3])
+              for l in lines if "passed the global" in l]
+    loop_s = [float(l.split()[3]) for l in lines
+              if l.startswith("yinyang: main loop ")]
+    per_it = ("%.3f" % (1e3 * loop_s[0] / len(counts))
+              if loop_s and counts else "-")
+    return ("%s; Yinyang loop %s ms per iteration; candidates/passed per "
+            "Yinyang iteration: %s" % ("; ".join(phases), per_it,
+                                       " ".join(counts)))
+
+
+def timed_init(x, k, metric, method, seed, m=0):
+    """Seconds of one init on a prepared problem, synchronized, and its
+    centroids."""
+    p = prepare(x, k, metric, x.device, Logger(0))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    c = I.init_centroids(p, method, seed, afkmc2_m=m)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t, c
+
+
+def wall_s(fn) -> float:
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def default_call_phase(tag, x):
+    """``kmeans_cuda(x, 1024)`` with every default (k-means++, Yinyang)
+    against ``yinyang_t=0`` on the headline data; then both walls from one
+    imported k-means++ start, so the init's host-paced time stays out of
+    their ratio.  Returns the launch counts of the default calls."""
+    k = HEADLINE["k"]
+    kw = dict(seed=1, tolerance=0.002, max_iterations=60)
+    L2 = D.DistanceMetric.L2
+    timed_init(x, k, L2, I.InitMethod.PLUS_PLUS, 1)
+    pp_s, c0 = timed_init(x, k, L2, I.InitMethod.PLUS_PLUS, 1)
+    _out, log, yy_n, ll_n = yinyang_vs_lloyd(
+        "default call 100000x256 fp32 k=1024", x, k, L2, **kw)
+    walls = {0.1: [], 0: []}
+    for _ in range(3):
+        for yt in (0, 0.1):
+            walls[yt].append(wall_s(lambda: kmeans_cuda(
+                x, k, init=c0, yinyang_t=yt, tolerance=0.002,
+                max_iterations=60)))
+    yy_s, ll_s = min(walls[0.1]), min(walls[0])
+    its = count_iterations(log)
+    print("%s default call 100000x256 fp32 k=1024 (k-means++, tolerance "
+          "0.002, %d iterations): k-means++ %.4f s; from its centroids "
+          "imported: Yinyang wall %.4f s (min of 3: %s), Lloyd wall %.4f s "
+          "(min of 3: %s, %.3f ms per iteration), Yinyang / Lloyd %.3f; %s"
+          % (tag, its, pp_s, yy_s,
+             ", ".join("%.4f" % w for w in walls[0.1]), ll_s,
+             ", ".join("%.4f" % w for w in walls[0]), 1e3 * ll_s / its,
+             yy_s / ll_s, yinyang_profile(log)), flush=True)
+    return yy_n, ll_n
+
+
+def bf16_yinyang_phase(tag, xb):
+    """Yinyang == Lloyd at 1M x 256 bf16 (random init, tolerance 0, 30
+    iterations); returns the launch counts of both runs."""
+    k = BF16_RUN["k"]
+    kw = dict(init="random", seed=1, tolerance=0.0, max_iterations=30)
+    _out, log, yy_n, ll_n = yinyang_vs_lloyd(
+        "1000000x256 bf16 k=1024 Yinyang", xb, k, D.DistanceMetric.L2, **kw)
+    yy_s = wall_s(lambda: kmeans_cuda(xb, k, yinyang_t=0.1, **kw))
+    ll_s = wall_s(lambda: kmeans_cuda(xb, k, yinyang_t=0, **kw))
+    print("%s 1000000x256 bf16 k=1024, 30 iterations: Yinyang wall %.4f s, "
+          "Lloyd wall %.4f s (one run each), Yinyang / Lloyd %.3f; %s"
+          % (tag, yy_s, ll_s, yy_s / ll_s, yinyang_profile(log)),
+          flush=True)
+    return yy_n, ll_n
+
+
+def spherical_phase(tag):
+    """AFK-MC2 at the JAX bench's spherical configuration
+    (bench.py:180-191); returns the call's launch counts."""
+    s = SPHERICAL
+    cos = D.DistanceMetric.COSINE
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(s["n"], s["f"], generator=g, device="cuda")
+    x = x / x.norm(dim=1, keepdim=True)
+    init_s, _ = timed_init(x, s["k"], cos, I.InitMethod.AFKMC2, 7, s["m"])
+    K.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        t = time.perf_counter()
+        c, a = kmeans_cuda(x, s["k"], init=("afkmc2", s["m"]), seed=7,
+                           metric="cos", tolerance=0.01, yinyang_t=0,
+                           max_iterations=20, verbosity=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    launches = dict(K.LAUNCHES)
+    log = buf.getvalue()
+    print(log, end="", flush=True)
+    empty, ties = check_result(x, s["k"], c, a, cos)
+    print("%s spherical 1000000x256 cos k=1024 AFK-MC2 (m=%d), tolerance "
+          "0.01, %d iterations: init %.4f s, wall %.4f s (one run, init "
+          "included); launches %s; %d empty clusters, %d near-tie rows "
+          "differ from the plain argmin"
+          % (tag, s["m"], count_iterations(log), init_s, wall, launches,
+             empty, ties), flush=True)
+    return launches
+
+
+def blob_fixture():
+    """The 13K blob mixture of tests/test_kmeans.py."""
+    rng = np.random.RandomState(0)
+    xs = np.empty((13000, 2), dtype=np.float32)
+    xs[:2000] = rng.rand(2000, 2) + [0, 0.5]
+    xs[2000:4000] = rng.rand(2000, 2) + [0, 1.5]
+    xs[4000:6000] = rng.rand(2000, 2) - [0, 0.5]
+    xs[6000:8000] = rng.rand(2000, 2) + [0.5, 0]
+    xs[8000:10000] = rng.rand(2000, 2) - [0.5, 0]
+    xs[10000:] = rng.rand(3000, 2) * 5 - [2, 2]
+    return xs
+
+
+def check_small_yinyang_agreement():
+    """Yinyang on a CUDA and a CPU tensor of the 13K fixture (k=50,
+    tolerance 0.002) from one imported start: identical assignments and
+    iteration lines, centroids within rtol 1e-5 / atol 1e-6, and the
+    card run launches B2."""
+    xs = blob_fixture()
+    c0 = torch.from_numpy(xs[np.random.RandomState(2).choice(13000, 50,
+                                                             replace=False)])
+    kw = dict(tolerance=0.002, yinyang_t=0.1, verbosity=1)
+    (c_gpu, a_gpu), log_gpu, launches, marks = run_marked(
+        lambda: kmeans_cuda(torch.from_numpy(xs).cuda(), 50,
+                            init=c0.cuda(), **kw))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        c_cpu, a_cpu = kmeans_cuda(torch.from_numpy(xs), 50, init=c0, **kw)
+    if iteration_lines(buf.getvalue()) != iteration_lines(log_gpu):
+        raise AssertionError("13K Yinyang: card and CPU iteration lines "
+                             "differ")
+    if not torch.equal(a_gpu.cpu(), a_cpu):
+        raise AssertionError("13K Yinyang: card and CPU assignments differ")
+    torch.testing.assert_close(c_gpu.cpu(), c_cpu, rtol=1e-5, atol=1e-6)
+    if len(marks) != 2 or launches["assign_only_pass"] \
+            == marks[1]["assign_only_pass"]:
+        raise AssertionError("13K Yinyang: the loop never launched B2")
+    print("small Yinyang input: card and CPU give identical assignments and "
+          "iteration lines (%d iterations), centroids within rtol 1e-5 / "
+          "atol 1e-6; launches %s" % (count_iterations(log_gpu), launches),
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -345,6 +619,20 @@ def main() -> int:
                              1e3 * wall / iterations[label]), flush=True)
 
     check_small_input_agreement()
+
+    check_row_independence()
+    paths = [("default call", *default_call_phase(tag, x)),
+             ("1M bf16 Yinyang", *bf16_yinyang_phase(tag, xb))]
+    del xb
+    paths.append(("spherical AFK-MC2", spherical_phase(tag)))
+    for label, *counts in paths:
+        for launches in counts:
+            for name, count in launches.items():
+                if count == 0:
+                    raise AssertionError("%s: %s never launched"
+                                         % (label, name))
+                total[name] += count
+    check_small_yinyang_agreement()
 
     knn = knn_phase(tag)
 
@@ -568,6 +856,33 @@ def knn_phase(tag):
           "queries" % (recall, tie_recall), flush=True)
     if tie_recall != 1.0:
         raise AssertionError("tie-aware recall %.6f != 1" % tie_recall)
+    del c, a, nb
+
+    # 4: clustered as the JAX bench does (AFK-MC2, m=200, bench.py:286-287)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        t = time.perf_counter()
+        c, a = kmeans_cuda(x, b["k"], init=("afkmc2", 200), seed=11,
+                           tolerance=0.01, yinyang_t=0, max_iterations=200,
+                           verbosity=1)
+        torch.cuda.synchronize()
+        km_s = time.perf_counter() - t
+        nb = knn_cuda(b["kn"], x, c, a, verbosity=1)
+        torch.cuda.synchronize()
+    frac_mc2 = fraction(buf.getvalue())
+    walls = [wall_s(lambda: knn_cuda(b["kn"], x, c, a)) for _ in range(3)]
+    recall, tie_recall = check_recall(x, nb, b["kn"])
+    print("%s wall knn_cuda %dx%d fp32 k=%d %d-NN, AFK-MC2-seeded clusters "
+          "(k-means %d iterations, %.4f s): %.4f s (min of 3: %s), examined "
+          "fraction %.6f (blob-center clusters: %.6f); recall@16 %.6f, "
+          "tie-aware recall@16 %.6f on 1024 queries"
+          % (tag, b["n"], b["f"], b["k"], b["kn"],
+             count_iterations(buf.getvalue()), km_s, min(walls),
+             ", ".join("%.4f" % w for w in walls), frac_mc2, frac, recall,
+             tie_recall), flush=True)
+    if tie_recall != 1.0:
+        raise AssertionError("AFK-MC2 clusters: tie-aware recall %.6f != 1"
+                             % tie_recall)
     del x, c, a, nb
 
     # 1(b): ragged, 10 NaN rows, fp32 and bf16 x L2 and cosine, 64 chunks

@@ -2,10 +2,11 @@
 
 The same call shape as ``kmcuda_tpu`` and the reference kmcuda binding:
 :func:`kmeans_torch` (alias ``kmeans_cuda``) and :func:`knn_torch` (alias
-``knn_cuda``).  Lloyd k-means and the pruned exact kNN run through
+``knn_cuda``).  k-means (Lloyd and Yinyang, with k-means++, AFK-MC2,
+random or imported init) and the pruned exact kNN run through
 hand-written CUDA kernels (``csrc/assign.cu``, ``csrc/knn_walk.cu``, built
 with ``nvcc`` at first use) on a CUDA tensor, and through their plain-torch
-twins on a CPU tensor.  What is not ported yet raises
+twins on a CPU tensor.  A device mask that selects several devices raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 

@@ -22,11 +22,10 @@ Devices are explicit, with no fallback:
   neighbour sentinel 0xFFFFFFFF); with no CUDA device it raises
   :class:`KMTPUNoSuchDevice`.
 
-Ported so far: Lloyd with random or imported init and the pruned exact
-kNN, for L2 and angular, fp32 and fp16/bf16 input (bf16 storage, fp32
-accumulation).  k-means++ and AFK-MC2 init and Yinyang raise
-``NotImplementedError`` naming their ROADMAP item; ``yinyang_t > 0`` runs
-Lloyd, whose results Yinyang equals.
+Ported: Lloyd and Yinyang with random, k-means++, AFK-MC2 or imported
+init, and the pruned exact kNN, for L2 and angular, fp32 and fp16/bf16
+input (bf16 storage, fp32 accumulation).  A device mask that selects
+several devices raises ``NotImplementedError`` (ROADMAP §A7).
 """
 
 import time
@@ -38,6 +37,7 @@ from kmcuda_torch import config
 from kmcuda_torch.models import initialization as I
 from kmcuda_torch.models import knn as KNN
 from kmcuda_torch.models import lloyd as L
+from kmcuda_torch.models import yinyang as Y
 from kmcuda_torch.models.problem import prepare
 from kmcuda_torch.ops.distance import DistanceMetric, disable_tf32, metrics
 from kmcuda_torch.parallel.devices import device_for
@@ -110,7 +110,7 @@ def kmeans_torch(samples, clusters, tolerance=0.01, init="k-means++",
     n, _features, k = V.check_kmeans_args(
         samples, clusters, tolerance, yinyang_t, seed, device)
     metric_e = _parse_metric(metric)
-    init_e, _afkmc2_m, imported = _parse_init(init)
+    init_e, afkmc2_m, imported = _parse_init(init)
     logger = Logger(verbosity)
     dev = device_for(samples, int(device), logger)
     if dev.type == "cuda":
@@ -125,14 +125,18 @@ def kmeans_torch(samples, clusters, tolerance=0.01, init="k-means++",
     if seed is None:
         seed = int(time.time())
 
-    centroids = I.init_centroids(problem, init_e, seed, imported=imported)
+    centroids = I.init_centroids(problem, init_e, seed, afkmc2_m=afkmc2_m,
+                                 imported=imported)
     assignments = L.new_assignments(problem)
-    if int(yinyang_t * k) > 0 and tolerance < config.YINYANG_MIN_TOLERANCE:
-        logger.info("yinyang is not ported yet (ROADMAP §A5); running "
-                    "Lloyd, whose results Yinyang equals")
-    centroids, assignments, _best, iters, _ = L.run(
-        problem, centroids, assignments, tolerance,
-        max_iterations=max_iterations)
+    groups = int(yinyang_t * k)
+    if groups > 0 and tolerance < config.YINYANG_MIN_TOLERANCE:
+        centroids, assignments, _best, iters = Y.run(
+            problem, centroids, assignments, tolerance, groups,
+            max_iterations=max_iterations, seed=seed)
+    else:
+        centroids, assignments, _best, iters, _ = L.run(
+            problem, centroids, assignments, tolerance,
+            max_iterations=max_iterations)
     logger.debug("finished in %d iterations" % iters)
     ad = (L.mean_assigned_distance(problem, centroids, assignments)
           if average_distance else None)

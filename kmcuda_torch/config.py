@@ -1,4 +1,4 @@
-"""Constants the Lloyd and kNN paths read, with the values of
+"""Constants the k-means and kNN paths read, with the values of
 ``kmcuda_tpu.config``.
 
 Only what this package runs is here; the TPU tile and lane knobs have no
@@ -12,6 +12,20 @@ DEFAULT_YINYANG_T = 0.1
 
 #: Yinyang is disabled when tolerance >= this value.
 YINYANG_MIN_TOLERANCE = 0.11
+
+#: Tolerance of the k-means that clusters the centroids into Yinyang groups.
+YINYANG_GROUP_TOLERANCE = 0.02
+
+#: The Lloyd draft runs until at most this fraction of the samples is
+#: reassigned in an iteration; then the Yinyang loop takes over.
+YINYANG_DRAFT_REASSIGNMENTS = 0.11
+
+#: Default AFK-MC2 Markov chain length.
+AFKMC2_DEFAULT_M = 200
+
+#: Centroids per progress line of the k-means++ / AFK-MC2 loops
+#: (verbosity >= 1, when k exceeds it).  Results do not depend on it.
+INIT_SEGMENT_CENTROIDS = 256
 
 #: Safety cap on Lloyd iterations.
 DEFAULT_MAX_ITERATIONS = 65535

@@ -5,8 +5,11 @@ assignments with the invalid marker k).  :func:`state_from_jax` turns them
 into this package's tensors, e.g. to hand JAX centroids to
 ``kmeans_torch(..., init=centroids)``; :func:`plan_from_jax` turns a kNN
 layout plan of ``kmcuda_tpu.models.knn.plan_pruned`` into this package's
-``SearchPlan``, so both searches can run on one layout.  Neither imports
-JAX: they take anything ``numpy.asarray`` takes.
+``SearchPlan``, so both searches can run on one layout; and
+:func:`groups_from_jax` turns the Yinyang grouping of
+``kmcuda_tpu.models.yinyang._group_centroids`` into this package's
+``GroupLayout``, so both Yinyang loops can run on one grouping.  None
+imports JAX: they take anything ``numpy.asarray`` takes.
 """
 
 import numpy as np
@@ -59,3 +62,15 @@ def plan_from_jax(plan, *, device):
         inc_t=_tensor(plan.inc_t, torch.int64, device),
         tile_nvalid=_tensor(plan.tile_nvalid, torch.int32, device),
         sorder=_tensor(plan.sorder, torch.int64, device))
+
+
+def groups_from_jax(group_of, flat_slot, pad_src, pad_pen, cap, *, device):
+    """The port's ``ops.yinyang.GroupLayout`` on ``device`` from the
+    (group_of, flat_slot, pad_src, pad_pen, cap) a JAX grouping returns."""
+    from kmcuda_torch.ops.yinyang import GroupLayout
+
+    return GroupLayout(
+        group_of=_tensor(group_of, torch.int64, device),
+        flat_slot=_tensor(flat_slot, torch.int64, device),
+        pad_src=_tensor(pad_src, torch.int64, device),
+        pad_pen=_tensor(pad_pen, torch.float32, device), cap=int(cap))

@@ -1,10 +1,21 @@
-"""Centroid initialization: random and import.
+"""Centroid initialization: random, k-means++, AFK-MC2, import.
 
-The port of ``kmcuda_tpu.models.initialization`` for the two methods the
-Lloyd slice carries.  ``random`` draws k distinct *valid* rows with a CPU
-``torch.Generator`` seeded from ``seed``, so CPU and GPU runs pick the same
-rows; it cannot reproduce the JAX package's ``jax.random`` draws.
-k-means++ and AFK-MC2 are not ported yet (ROADMAP §A4).
+The port of ``kmcuda_tpu.models.initialization``.  Every draw comes from
+a CPU ``torch.Generator`` seeded with ``seed``, so CPU and GPU runs draw
+the same numbers; they cannot reproduce the JAX package's ``jax.random``
+draws, only their distributions.  The uniforms (and AFK-MC2's candidate
+ids) are drawn up front and moved to the device once, and the loops over
+the k centroids never read a device value back, except for a progress
+line.
+
+- random: k distinct *valid* rows, uniformly.
+- k-means++: each step draws a row with probability proportional to its
+  running *distance* (not squared) to the nearest chosen centroid, as the
+  reference does; invalid rows weigh 0.
+- AFK-MC2: q[i] = d0_i^2 / (2 sum d0^2) + 1/(2 n_valid) from the first
+  centroid; each of the k-1 steps runs a Metropolis-Hastings chain over m
+  candidates drawn from q, with weight dmin(candidate)^2 / q(candidate).
+- import: the caller's centroids.
 """
 
 import enum
@@ -12,6 +23,8 @@ import enum
 import numpy as np
 import torch
 
+from kmcuda_torch import config
+from kmcuda_torch.ops import distance as D
 from kmcuda_torch.utils.errors import KMTPUInvalidArguments
 
 
@@ -34,6 +47,13 @@ init_methods = {
 }
 
 
+def generator(seed: int) -> torch.Generator:
+    """The CPU generator every draw of a call comes from."""
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(int(seed))
+    return gen
+
+
 def _imported(problem, imported) -> torch.Tensor:
     if isinstance(imported, torch.Tensor):
         cent = imported.to(device=problem.device, dtype=torch.float32)
@@ -47,23 +67,185 @@ def _imported(problem, imported) -> torch.Tensor:
     return cent
 
 
-def _random(problem, seed: int) -> torch.Tensor:
-    gen = torch.Generator(device="cpu")
-    gen.manual_seed(int(seed))
+def _random(problem, gen) -> torch.Tensor:
     rows = torch.nonzero(problem.valid.cpu()).squeeze(1)
     pick = torch.randperm(rows.numel(), generator=gen)[:problem.k]
     return problem.x[rows[pick].to(problem.device)].float()
 
 
-def init_centroids(problem, method: InitMethod, seed: int,
+def _draw_block_size(n: int) -> int:
+    """Inner-block length of the two-level weighted draw: the largest
+    power of two <= 4096 dividing n into at least two blocks (1 = one
+    level)."""
+    cand = 4096
+    while cand >= 2:
+        if n % cand == 0 and n // cand >= 2:
+            return cand
+        cand //= 2
+    return 1
+
+
+def _inverse_cdf(cum, t):
+    """First index whose cumulative weight exceeds ``t``.  ``t`` is held
+    below the total, so a row of weight 0 is never drawn while any weight
+    is positive (``u * total`` can round up to the total)."""
+    t = torch.minimum(t, torch.nextafter(cum[-1:], torch.zeros_like(t)))
+    return torch.clamp(torch.searchsorted(cum, t, right=True),
+                       max=cum.shape[0] - 1)
+
+
+def _weighted_draw(weights, u):
+    """Index ~ Categorical(weights) by a two-level inverse CDF: block sums
+    -> a short cumsum picks the block -> one block's cumsum picks the row,
+    so a step scans n weights once instead of a full prefix sum.
+
+    ``u`` is a (1,) uniform on the weights' device; returns a (1,) int64
+    index on that device, with no host sync."""
+    n = weights.shape[0]
+    bs = _draw_block_size(n)
+    if bs == 1:
+        cum = torch.cumsum(weights, 0)
+        return _inverse_cdf(cum, u * cum[-1:])
+    blocks = weights.view(n // bs, bs)
+    cumb = torch.cumsum(blocks.sum(1), 0)
+    t = u * cumb[-1:]
+    j = _inverse_cdf(cumb, t)
+    before = torch.where(j > 0, cumb[torch.clamp(j - 1, min=0)],
+                         torch.zeros_like(t))
+    cumr = torch.cumsum(blocks.index_select(0, j)[0], 0)
+    return j * bs + _inverse_cdf(cumr, t - before)
+
+
+def _progress(problem, label: str, done: int, k: int) -> None:
+    """One ``label: done / k centroids`` line per INIT_SEGMENT_CENTROIDS
+    centroids when k exceeds it, at verbosity >= 1, after the device has
+    caught up (the only sync of the loops)."""
+    seg = config.INIT_SEGMENT_CENTROIDS
+    if problem.logger.verbosity < 1 or k <= seg:
+        return
+    if (done - 1) % seg and done != k:
+        return
+    if problem.device.type == "cuda":
+        torch.cuda.synchronize(problem.device)
+    problem.logger.info("%s: %d / %d centroids" % (label, done, k))
+
+
+def _row(x, idx) -> torch.Tensor:
+    """(1, F) fp32 copy of row ``idx`` ((1,) tensor), with no host sync."""
+    return x.index_select(0, idx).float()
+
+
+def _init_plus_plus(problem, gen) -> torch.Tensor:
+    """k-means++ over the problem's valid rows; (k, F) fp32."""
+    p = problem
+    k = p.k
+    us = torch.rand(k, generator=gen).to(p.device)
+    validf = p.valid.float()
+    cent = torch.empty((k, p.features), dtype=torch.float32, device=p.device)
+    cent[0:1] = _row(p.x, _weighted_draw(validf, us[0:1]))
+    # invalid rows start at 0 and the minimum keeps them there
+    mindist = torch.where(p.valid, D.point_distances(p.x, p.x_sq, cent[0],
+                                                     p.metric), 0.0)
+    for i in range(1, k):
+        # every valid row already chosen (fewer distinct rows than k): draw
+        # among the valid rows instead of the all-zero weights
+        w = torch.where(mindist.sum() > 0, mindist, validf)
+        cent[i:i + 1] = _row(p.x, _weighted_draw(w, us[i:i + 1]))
+        if i + 1 < k:
+            mindist = torch.minimum(mindist, D.point_distances(
+                p.x, p.x_sq, cent[i], p.metric))
+        _progress(p, "kmeans++", i + 1, k)
+    return cent
+
+
+def _host_draws(q, count: int, gen) -> torch.Tensor:
+    """``count`` row ids ~ Categorical(q), with replacement, drawn on the
+    host by an fp64 inverse CDF (``torch.multinomial`` stops at 2**24
+    categories)."""
+    cum = torch.cumsum(q.cpu().double(), 0)
+    u = torch.rand(count, generator=gen, dtype=torch.float64)
+    return _inverse_cdf(cum, u * cum[-1])
+
+
+def mh_chain(prob, u):
+    """The AFK-MC2 Metropolis-Hastings chain over m candidates, without a
+    host sync per step.
+
+    The sequential chain holds one candidate; candidate j replaces the
+    held candidate a when ``prob[a] == 0 or prob[j] / prob[a] > u[j]``
+    (the first is always taken).  ``next[a]`` is the first such j > a, so
+    the chain's final candidate is the end of the path 0 -> next[0] -> ...;
+    pointer doubling finds it in log2(m) gathers.  Returns the (1,) int64
+    position of the final candidate."""
+    m = prob.shape[0]
+    pos = torch.arange(m, device=prob.device)
+    take = ((prob[:, None] == 0) | (prob[None, :] / prob[:, None] > u[None, :])
+            ) & (pos[None, :] > pos[:, None])
+    nxt = torch.where(take, pos[None, :], m).amin(1)
+    jump = torch.where(nxt < m, nxt, pos)
+    for _ in range(max(1, (m - 1).bit_length())):
+        jump = jump[jump]
+    return jump[0:1]
+
+
+def _init_afkmc2(problem, m: int, gen) -> torch.Tensor:
+    """AFK-MC2 over the problem's valid rows; (k, F) fp32."""
+    p = problem
+    k = p.k
+    validf = p.valid.float()
+    cent = torch.zeros((k, p.features), dtype=torch.float32, device=p.device)
+    cent[0:1] = _row(p.x, _weighted_draw(
+        validf, torch.rand(1, generator=gen).to(p.device)))
+    d0 = torch.where(p.valid, D.point_distances(p.x, p.x_sq, cent[0],
+                                                p.metric), 0.0)
+    d0_sq = d0 * d0
+    total = torch.clamp(d0_sq.sum(), min=torch.finfo(torch.float32).tiny)
+    q = d0_sq / (2.0 * total) + validf * (0.5 / p.n_valid)
+    q = q / q.sum()
+    ids = _host_draws(q, (k - 1) * m, gen).view(k - 1, m).to(p.device)
+    us = torch.rand((k - 1, m), generator=gen).to(p.device)
+    slot = torch.arange(k, device=p.device)
+    for i in range(1, k):
+        cand_idx = ids[i - 1]
+        cand = p.x.index_select(0, cand_idx)
+        # min distance of each candidate to the i chosen centroids; the
+        # penalty masks the unfilled rows of the buffer
+        pen = torch.where(slot < i, 0.0, config.PAD_PENALTY)
+        s = D.scores(cand, cent.to(p.x.dtype).T, D.row_sq_norms(cent),
+                     p.metric) + pen[None, :]
+        dmin = D.finalize_distance(s.amin(1), p.x_sq[cand_idx], p.metric)
+        prob = dmin * dmin / q[cand_idx]
+        cent[i:i + 1] = _row(p.x, cand_idx[mh_chain(prob, us[i - 1])])
+        _progress(p, "afkmc2", i + 1, k)
+    return cent
+
+
+def afkmc2_chain_length(problem, m: int) -> int:
+    """0 -> min(AFKMC2_DEFAULT_M, n_valid // 2) (at least 1); above n // 2
+    raises, as the reference."""
+    if m == 0:
+        return min(config.AFKMC2_DEFAULT_M, max(1, problem.n_valid // 2))
+    if m > problem.n // 2:
+        raise KMTPUInvalidArguments(
+            "afkmc2: m > %d is not supported (got %d)" % (problem.n // 2, m))
+    return m
+
+
+def init_centroids(problem, method: InitMethod, seed: int, afkmc2_m: int = 0,
                    imported=None) -> torch.Tensor:
     """Returns (k, F) fp32 centroids on the problem's device."""
+    p = problem
     if method == InitMethod.IMPORT:
-        return _imported(problem, imported)
+        return _imported(p, imported)
+    gen = generator(seed)
     if method == InitMethod.RANDOM:
-        problem.logger.info("performing random centroid initialization...")
-        return _random(problem, seed)
-    if method in (InitMethod.PLUS_PLUS, InitMethod.AFKMC2):
-        raise NotImplementedError(
-            "init method %s is not ported yet (ROADMAP §A4)" % method.name)
+        p.logger.info("performing random centroid initialization...")
+        return _random(p, gen)
+    if method == InitMethod.PLUS_PLUS:
+        p.logger.info("performing kmeans++...")
+        return _init_plus_plus(p, gen)
+    if method == InitMethod.AFKMC2:
+        m = afkmc2_chain_length(p, afkmc2_m)
+        p.logger.info("performing afkmc2 (m = %d)..." % m)
+        return _init_afkmc2(p, m, gen)
     raise KMTPUInvalidArguments("unknown init method %r" % (method,))

@@ -3,10 +3,10 @@
 The port of ``kmcuda_tpu.models.lloyd`` around the host loop
 ``ops.assign.lloyd_run``.  Logs ``iteration N: M reassignments`` after
 every iteration, like the reference's ``check_changed``.  The stop rules
-are those of the reference's ``_SegmentDriver``: always run the first
-iteration, then continue while the count exceeds ``int(tolerance * n)``,
-the iteration cap is not reached and the count keeps improving
-(``STAGNATION_PATIENCE``).  A host loop has no segments.
+are those of the reference's ``_SegmentDriver`` (:class:`Driver`): always
+run the first iteration, then continue while the count exceeds
+``int(tolerance * n)``, the iteration cap is not reached and the count
+keeps improving (``STAGNATION_PATIENCE``).  A host loop has no segments.
 """
 
 import torch
@@ -31,6 +31,57 @@ def new_assignments(problem) -> torch.Tensor:
     return problem.assign0
 
 
+class Driver:
+    """Stop rules of a convergence loop, one iteration at a time: logs
+    the iteration line, counts the budget and carries the stagnation
+    counters (mark, stale).  One driver spans a Yinyang run's draft and
+    main loop, so it stops at the iteration a Lloyd run of the same
+    trajectory stops at; only ``tol`` changes at the hand-over."""
+
+    def __init__(self, logger, tol_count: int, max_iterations=None,
+                 iter_offset: int = 0):
+        if max_iterations is None:
+            max_iterations = config.DEFAULT_MAX_ITERATIONS
+        self.logger = logger
+        self.tol = int(tol_count)
+        self.cap = min(int(max_iterations), config.DEFAULT_MAX_ITERATIONS)
+        self.offset = iter_offset
+        self.done = 0
+        self.last = 0
+        self.mark, self.stale = A.INT32_MAX, 0
+
+    def absorb(self, changed: int) -> bool:
+        """Log one finished iteration; True = keep iterating."""
+        self.done += 1
+        self.last = changed
+        self.logger.iteration(self.offset + self.done, changed)
+        self.mark, self.stale = A.stagnation_update(changed, self.mark,
+                                                    self.stale)
+        return self.keep_going()
+
+    def keep_going(self) -> bool:
+        """The stop rule on the last count, against the current ``tol``."""
+        return (self.last > self.tol and self.done < self.cap
+                and self.stale < _patience())
+
+    def finish(self) -> None:
+        """Once stopped: say so if the stagnation rule stopped the loop."""
+        if self.last > self.tol and self.done < self.cap:
+            self.logger.info(
+                "stopping: reassignments stagnated at %d (churn floor above "
+                "the tolerance; see STAGNATION_PATIENCE)" % self.last)
+
+
+def drive(driver, steps):
+    """Feed ``steps`` (an ``ops.assign.lloyd_run`` generator) to the
+    driver until it stops; returns the last ``LloydStep``."""
+    for step in steps:
+        if not driver.absorb(step.changed):
+            break
+    steps.close()
+    return step
+
+
 def run(problem, centroids, assignments, tolerance, max_iterations=None,
         iter_offset=0):
     """Iterate Lloyd until reassignments <= tolerance * n.
@@ -40,27 +91,11 @@ def run(problem, centroids, assignments, tolerance, max_iterations=None,
     were computed against (the reference also stops before re-adjusting).
     """
     p = problem
-    if max_iterations is None:
-        max_iterations = config.DEFAULT_MAX_ITERATIONS
-    cap = min(int(max_iterations), config.DEFAULT_MAX_ITERATIONS)
-    tol_count = int(tolerance * p.n)
-    patience = _patience()
-    mark, stale = A.INT32_MAX, 0
-    it = 0
-    steps = A.lloyd_run(p.x, p.valid, assignments, centroids,
-                        n_clusters=p.k, metric=p.metric)
-    for c_used, _c_next, assignments, best, changed in steps:
-        it += 1
-        p.logger.iteration(iter_offset + it, changed)
-        mark, stale = A.stagnation_update(changed, mark, stale)
-        if not (changed > tol_count and it < cap and stale < patience):
-            break
-    steps.close()
-    if changed > tol_count and it < cap:
-        p.logger.info(
-            "stopping: reassignments stagnated at %d (churn floor above the "
-            "tolerance; see STAGNATION_PATIENCE)" % changed)
-    return c_used, assignments, best, it, changed
+    drv = Driver(p.logger, int(tolerance * p.n), max_iterations, iter_offset)
+    step = drive(drv, A.lloyd_run(p.x, p.valid, assignments, centroids,
+                                  n_clusters=p.k, metric=p.metric))
+    drv.finish()
+    return step.c_used, step.assign, step.best, drv.done, drv.last
 
 
 def mean_assigned_distance(problem, centroids, assignments) -> float:

@@ -11,6 +11,8 @@ Each iteration pays one host sync, to read its reassignment count — the
 same sync the reference kmcuda pays in ``check_changed``.
 """
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -54,16 +56,30 @@ def stagnation_update(changed: int, mark: int, stale: int) -> tuple:
     return mark, stale + 1
 
 
+class LloydStep(NamedTuple):
+    """One iteration of :func:`lloyd_run`: ``c_used`` are the centroids
+    its assignment was computed against, ``c_next`` their update from the
+    running (``sums``, ``counts``), ``changed`` the host-side reassignment
+    count.  The last step is the accumulation state a Yinyang loop
+    continues from."""
+
+    c_used: torch.Tensor
+    c_next: torch.Tensor
+    assign: torch.Tensor
+    best: torch.Tensor
+    changed: int
+    sums: torch.Tensor
+    counts: torch.Tensor
+
+
 def lloyd_run(x, valid, assign, centroids, *, n_clusters: int,
               metric: D.DistanceMetric):
-    """Iterate Lloyd; yields (c_used, c_next, assign, best, changed) once
-    per iteration and runs until the caller stops iterating.
+    """Iterate Lloyd; yields a :class:`LloydStep` once per iteration and
+    runs until the caller stops iterating.
 
-    ``c_used`` are the centroids this iteration's assignment was computed
-    against and ``c_next`` their update; ``changed`` is a host int.  The
-    first iteration is always dense (the previous count starts at int32
-    max), so the running sums exist before any sparse iteration adds to
-    them.
+    The first iteration is always dense (the previous count starts at
+    int32 max), so the running sums exist before any sparse iteration adds
+    to them.
     """
     # imported here: assign_kernels imports this module's panel builders
     from kmcuda_torch.ops import assign_kernels as K
@@ -91,5 +107,5 @@ def lloyd_run(x, valid, assign, centroids, *, n_clusters: int,
             sums = sums + d_sums
             counts = counts + d_counts
             c_next = D.normalize_centroids(sums, counts.float(), metric)
-        yield c_cur, c_next, aid, best, changed
+        yield LloydStep(c_cur, c_next, aid, best, changed, sums, counts)
         assign, c_cur, prev_changed = aid, c_next, changed

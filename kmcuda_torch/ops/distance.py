@@ -52,6 +52,15 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
+def rounding_eps(dtype) -> float:
+    """Relative error bound between differently computed versions of one
+    score (rowwise dot vs matmul, natural vs padded group panel); the
+    Yinyang filter margins scale with it so the bounds stay sound."""
+    if dtype == torch.float32:
+        return 4e-6
+    return 2.0 ** -6
+
+
 def row_sq_norms(x: torch.Tensor) -> torch.Tensor:
     """|x_i|^2 per row, fp32 accumulation regardless of storage dtype."""
     xf = x.float()
@@ -138,6 +147,19 @@ def argmin_rescored(score, k: int, xb, c_ext):
     aid = torch.where(take_b, a2, a1)
     best = torch.where(take_b, s2, s1)
     return best, aid, torch.minimum(d2a, d2b)
+
+
+def point_distances(x, x_sq, c, metric: DistanceMetric):
+    """True distance of every sample to one point ``c`` (F,), the step of
+    the k-means++ and AFK-MC2 loops.  The product takes ``c`` rounded to
+    the storage dtype, |c|^2 the fp32 ``c``, as the reference.  Returns
+    (N,) fp32."""
+    prod = matmul_f32(x, c.to(x.dtype))
+    if metric == DistanceMetric.L2:
+        cf = c.float()
+        c_sq = torch.sum(cf * cf)
+        return torch.sqrt(torch.clamp(x_sq - 2.0 * prod + c_sq, min=0.0))
+    return torch.arccos(torch.clamp(prod, -1.0, 1.0))
 
 
 def pairwise_distance(a, b, metric: DistanceMetric):

@@ -1,9 +1,11 @@
 """Verbosity-gated logging, stdout-compatible with the reference.
 
 The same lines as ``kmcuda_tpu.utils.logging``: INFO at verbosity > 0,
-DEBUG at > 1, plain lines on stdout.  The
+DEBUG at > 1, plain lines on stdout; warnings always, on stderr.  The
 ``iteration %d: %d reassignments`` line is API: test suites parse it.
 """
+
+import sys
 
 
 class Logger:
@@ -23,3 +25,6 @@ class Logger:
         if self.verbosity > 0:
             print("iteration %d: %d reassignments" % (n, reassignments),
                   flush=True)
+
+    def warning(self, msg: str) -> None:
+        print(msg, file=sys.stderr, flush=True)

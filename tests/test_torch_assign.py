@@ -210,15 +210,16 @@ def test_lloyd_run_dense_then_sparse_matches_fresh_sums():
     arms = []
     steps = TA.lloyd_run(xt, vt, assign, ct, n_clusters=30,
                          metric=TD.DistanceMetric.L2)
-    for i, (c_used, c_next, aid, best, changed) in enumerate(steps):
-        arms.append(changed)
+    for i, step in enumerate(steps):
+        arms.append(step.changed)
         if i == 7:
             break
     steps.close()
-    sums, counts = K.segment_sum_reference(xt, aid, 30)
+    sums, counts = K.segment_sum_reference(xt, step.assign, 30)
+    assert torch.equal(counts, step.counts)
     fresh = TD.normalize_centroids(sums, counts.float(),
                                    TD.DistanceMetric.L2)
-    np.testing.assert_allclose(c_next.numpy(), fresh.numpy(), rtol=1e-5,
-                               atol=1e-6)
+    np.testing.assert_allclose(step.c_next.numpy(), fresh.numpy(),
+                               rtol=1e-5, atol=1e-6)
     assert arms[0] == 6000                 # dense: everything moves first
     assert any(a < 0.35 * 6000 for a in arms[1:-1])   # sparse arm ran

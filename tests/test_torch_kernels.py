@@ -98,3 +98,22 @@ def test_fused_equals_assign_only_and_sums_repeat(cuda, dtype):
     assert int(ch1) == int(ch2)
     assert torch.equal(s1, s3) and torch.equal(n1, n3)   # bitwise repeat
 
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_assign_only_rows_are_independent(cuda, dtype):
+    """B2 on a gathered, sorted subset of the rows gives them bitwise what
+    B2 over all rows gives them: the Yinyang loop's local filter rests on
+    it."""
+    x, valid, prev, c = _problem(cuda, 20011, 70, 300, dtype,
+                                 D.DistanceMetric.L2, True, seed=2)
+    kw = dict(n_clusters=300, metric=D.DistanceMetric.L2)
+    a, b, _ch = K.assign_only_pass(x, valid, prev, c, **kw)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    rows = torch.sort(torch.randperm(20011, generator=g)[:2000]).values
+    rows = rows.to(cuda)
+    a2, b2, ch2 = K.assign_only_pass(x[rows], valid[rows], prev[rows], c,
+                                     **kw)
+    assert torch.equal(a2, a[rows]) and torch.equal(b2, b[rows])
+    assert int(ch2) == int((a[rows] != prev[rows]).sum())

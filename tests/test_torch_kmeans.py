@@ -210,10 +210,12 @@ def test_numpy_input_needs_a_cuda_device(samples, monkeypatch):
 
 
 def test_not_ported_yet_raises(samples, monkeypatch):
+    """Every init runs; a mask selecting several devices raises (§A7)."""
     x = torch.from_numpy(samples)
     for init in ("kmeans++", ("afkmc2", 10)):
-        with pytest.raises(NotImplementedError, match="§A4"):
-            kmeans_cuda(x, 50, init=init, yinyang_t=0)
+        c, a = kmeans_cuda(x, 50, init=init, seed=1, tolerance=0.05,
+                           yinyang_t=0)
+        assert not torch.isnan(c).any() and int(a.max()) < 50
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="§A7"):
         kmeans_cuda(x, 50, init="random", yinyang_t=0, device=3)
@@ -236,13 +238,19 @@ def test_device_mask_rules(samples, monkeypatch):
 
 
 def test_yinyang_request_runs_lloyd(samples, capsys):
+    """At tolerance >= YINYANG_MIN_TOLERANCE (0.11) a yinyang_t > 0 call
+    runs Lloyd, as the reference does."""
     x = torch.from_numpy(samples)
-    c1, a1 = kmeans_cuda(x, 50, init="random", seed=4, tolerance=0.01,
-                         yinyang_t=0.1, verbosity=1)
-    assert "yinyang is not ported yet" in capsys.readouterr().out
-    c0, a0 = kmeans_cuda(x, 50, init="random", seed=4, tolerance=0.01,
+    c1, a1 = kmeans_cuda(x, 50, init="random", seed=4, tolerance=0.11,
+                         yinyang_t=0.1, verbosity=2)
+    out = capsys.readouterr().out
+    assert "iteration 1:" in out and "yinyang" not in out
+    c0, a0 = kmeans_cuda(x, 50, init="random", seed=4, tolerance=0.11,
                          yinyang_t=0)
     assert torch.equal(a0, a1) and torch.equal(c0, c1)
+    kmeans_cuda(x, 50, init="random", seed=4, tolerance=0.1, yinyang_t=0.1,
+                verbosity=2)
+    assert "yinyang: 5 groups" in capsys.readouterr().out
 
 
 def test_cluster_id_limit():
