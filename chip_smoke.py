@@ -4,10 +4,15 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``kmcuda_torch/csrc`` (nvcc, one
-process per source, at first use) and holds each against its plain-torch
-twin on the card; B2 must also give a gathered subset of the rows bitwise
-the results it gives them in a launch over all rows (the Yinyang loop
-rests on it).
+process per source, at first use), prints ptxas's registers, shared
+memory and spills of the assignment kernel, requires ``HGMMA`` (wgmma) in
+the SASS of both its instantiations, and holds each kernel against its
+plain-torch twin on the card; B2 must also give a gathered subset of the
+rows bitwise the results it gives them in a launch over all rows (the
+Yinyang loop rests on it), and its best scores are measured against fp64
+in ulps.  Each kernel is timed in turns with its twin and, where one
+exists, a library yardstick (plain, kernel, kernel, plain, library),
+beside its bound from ``roofline.py`` (beside this script).
 
 Lloyd: the public ``kmeans_cuda`` at the reference benchmark's headline
 configuration (100,000 x 256 fp32, k=1024, random init, seed 1, tolerance
@@ -59,6 +64,7 @@ Tolerances (kernel vs plain twin on the same tensors):
 import contextlib
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -75,7 +81,9 @@ from kmcuda_torch.ops import _build
 from kmcuda_torch.ops import assign_kernels as K
 from kmcuda_torch.ops import distance as D
 from kmcuda_torch.ops import knn_kernels as KK
+from kmcuda_torch.ops.assign import pad_clusters
 from kmcuda_torch.utils.logging import Logger
+import roofline as R
 
 HEADLINE = dict(n=100_000, f=256, k=1024)
 BF16_RUN = dict(n=1_000_000, f=256, k=1024)
@@ -210,31 +218,129 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def kernel_report():
+    """ptxas's registers, shared memory and spills of each assignment
+    kernel instantiation (from the build log), and the HGMMA (wgmma)
+    instructions in their SASS (``cuobjdump -sass`` of the built library);
+    fails unless both instantiations run on wgmma.  Returns the counts."""
+    log = _build.build_log_path().read_text().splitlines()
+    for i, line in enumerate(log):
+        if "Compiling entry function" in line and "assign_kernel" in line:
+            kind = "bf16" if "nv_bfloat16" in line else "float"
+            print("ptxas assign_kernel<%s>: %s; %s"
+                  % (kind, log[i + 3].split(":", 1)[1].strip(),
+                     log[i + 2].strip()), flush=True)
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {}
+    for section in sass.split("Function : ")[1:]:
+        name = section.split("\n", 1)[0]
+        if "assign_kernel" in name:
+            kind = "bf16" if "nv_bfloat16" in name else "float"
+            counts[kind] = section.count("HGMMA")
+    print("SASS HGMMA instructions: assign_kernel<bf16> %d, "
+          "assign_kernel<float> %d" % (counts.get("bf16", 0),
+                                       counts.get("float", 0)), flush=True)
+    if not (counts.get("bf16") and counts.get("float")):
+        raise AssertionError("assign_kernel does not run on wgmma")
+    return counts
+
+
+def score_ulps(rows=4096):
+    """B2's best scores against fp64 on the first ``rows`` rows of the
+    headline inputs, in ulps of the fp32 score, beside the plain twin's.
+    The fp64 score takes the panel in the storage dtype and the fp32
+    |c|^2, as both do.  Returns the largest kernel error."""
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for metric in (D.DistanceMetric.L2, D.DistanceMetric.COSINE):
+            n, f, k = HEADLINE["n"], HEADLINE["f"], HEADLINE["k"]
+            x, valid, prev, c = make_inputs(n, f, k, dtype, metric, False,
+                                            7)
+            x, valid, prev = x[:rows], valid[:rows], prev[:rows]
+            kw = dict(n_clusters=k, metric=metric)
+            got = K.assign_only_pass(x, valid, prev, c, **kw)
+            ref = K.assign_only_pass_reference(x, valid, prev, c, **kw)
+            panel, c_sq = pad_clusters(c, dtype)
+            out = []
+            for aid, best in (got[:2], ref[:2]):
+                a = aid.long()
+                prod = (x.double() * panel.double()[a]).sum(dim=1)
+                s64 = -prod if metric == D.DistanceMetric.COSINE \
+                    else c_sq.double()[a] - 2.0 * prod
+                mag = s64.abs().float()
+                ulp = (torch.nextafter(mag, torch.full_like(mag, np.inf))
+                       - mag).double()
+                out.append(((best.double() - s64).abs() / ulp))
+            print("score error vs fp64, %d rows %dx%d k=%d %s %s: kernel "
+                  "max %.2f ulps (mean %.3f), plain twin max %.2f (mean "
+                  "%.3f)" % (rows, n, f, k, str(dtype)[6:], metric.name,
+                             float(out[0].max()), float(out[0].mean()),
+                             float(out[1].max()), float(out[1].mean())),
+                  flush=True)
+            worst = max(worst, float(out[0].max()))
+    return worst
+
+
 def time_kernels(tag, shape, dtype, reps):
-    """B1, B2 and their plain twins at one main-path shape, in turns
-    (plain, kernel, kernel, plain); returns {name: (ms, plain_ms)}."""
+    """B1, B2 and B1's segment sum at one main-path shape, each in turns
+    with its plain twin and library yardstick (plain, kernel, kernel,
+    plain, library); returns {name: {ms, plain_ms, library_ms, library,
+    bound_ms, bound_by}}.  B2's yardstick is ``torch.matmul(x, panel.T)``
+    in the storage dtype: the score product only.  The segment sum's is
+    ``torch.zeros(k, f).index_add_(0, aid, x.float())``; the kernel is
+    launched through ``K.launch_segment_sum``, which counts no launch.  B1
+    has none: no single call scores, picks and sums."""
     n, f, k = shape["n"], shape["f"], shape["k"]
     x, valid, prev, c = make_inputs(n, f, k, dtype, D.DistanceMetric.L2,
                                     False, 11)
     kw = dict(n_clusters=k, metric=D.DistanceMetric.L2)
+    panel, _c_sq = pad_clusters(c, dtype)
+    aid = K.assign_only_pass(x, valid, prev, c, **kw)[0]
+    aid_long = aid.long()
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    name_dt = str(dtype)[6:]
     fns = {
         "fused_lloyd_pass": (
             lambda: K.fused_lloyd_pass(x, valid, prev, c, **kw),
-            lambda: K.fused_lloyd_pass_reference(x, valid, prev, c, **kw)),
+            lambda: K.fused_lloyd_pass_reference(x, valid, prev, c, **kw),
+            None, None, R.fused_bound(n, f, k, name_dt)),
         "assign_only_pass": (
             lambda: K.assign_only_pass(x, valid, prev, c, **kw),
-            lambda: K.assign_only_pass_reference(x, valid, prev, c, **kw)),
+            lambda: K.assign_only_pass_reference(x, valid, prev, c, **kw),
+            lambda: torch.matmul(x, panel.T),
+            "torch.matmul(x, panel.T), product only",
+            R.assign_bound(n, f, k, name_dt)),
+        "segment_sum": (
+            lambda: K.launch_segment_sum(lib, x, aid, k, stream),
+            lambda: K.segment_sum_reference(x, aid, k),
+            lambda: torch.zeros((k, f), device=x.device).index_add_(
+                0, aid_long, x.float()),
+            "torch.zeros(k, f).index_add_(0, aid, x.float())",
+            R.segment_sum_bound(n, f, k, name_dt)),
     }
     out = {}
-    for name, (kern, plain) in fns.items():
+    for name, (kern, plain, library, label, bnd) in fns.items():
         p1 = time_ms(plain, reps)
         k1 = time_ms(kern, reps)
         k2 = time_ms(kern, reps)
         p2 = time_ms(plain, reps)
-        out[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print("%s time %s %dx%d k=%d %s: kernel %.4f ms, plain %.4f ms"
-              % (tag, name, n, f, k, str(dtype)[6:], out[name][0],
-                 out[name][1]), flush=True)
+        lib_ms = time_ms(library, reps) if library else None
+        out[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+                     "library_ms": lib_ms, "library": label,
+                     "bound_ms": bnd["ms"], "bound_by": bnd["by"]}
+        print("%s time %s %dx%d k=%d %s: kernel %.4f ms (%.4f/%.4f), plain "
+              "%.4f ms (%.4f/%.4f), library %s, bound %.4f ms (%s; %.4g "
+              "bytes, %s)"
+              % (tag, name, n, f, k, name_dt, out[name]["ms"], k1, k2,
+                 out[name]["plain_ms"], p1, p2,
+                 "%.4f ms (%s)" % (lib_ms, label) if lib_ms else "none",
+                 bnd["ms"], bnd["by"], bnd["bytes"],
+                 ", ".join("%.4g %s" % (v, kind)
+                           for kind, v in bnd["ops"].items())), flush=True)
+    del x, valid, prev, c, panel, aid, aid_long
     return out
 
 
@@ -549,11 +655,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     print("kernel build %.1f s" % (time.perf_counter() - t0), flush=True)
+    kernel_report()
 
     errs = {"fused_lloyd_pass": 0.0, "assign_only_pass": 0.0}
     check_kernels(errs)
+    score_ulps()
     times = time_kernels(tag, HEADLINE, torch.float32, 20)
-    time_kernels(tag, BF16_RUN, torch.bfloat16, 5)
+    times_bf16 = time_kernels(tag, BF16_RUN, torch.bfloat16, 5)
 
     dev = torch.device("cuda")
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -636,18 +744,33 @@ def main() -> int:
 
     knn = knn_phase(tag)
 
+    # top-level numbers at the headline shape (100K x 256 fp32, k=1024);
+    # "bf16_1m" the same at 1M x 256 bf16; B1 also carries its segment sum
+    def numbers(t):
+        return {key: t[key] for key in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")}
+
     kernels = []
     for name, line in (("fused_lloyd_pass", 81), ("assign_only_pass", 127)):
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda",
             "source": "kmcuda_torch/csrc/assign.cu",
             "replaces": "kmcuda_tpu/ops/assign_pallas.py:%d" % line,
             "launches": total[name], "max_abs_err": errs[name],
-            "ms": times[name][0], "plain_ms": times[name][1]})
+            **numbers(times[name]), "library": times[name]["library"],
+            "shape": "100000x256 fp32 k=1024",
+            "bf16_1m": numbers(times_bf16[name])}
+        if name == "fused_lloyd_pass":
+            entry["segment_sum"] = {
+                **numbers(times["segment_sum"]),
+                "library": times["segment_sum"]["library"],
+                "bf16_1m": numbers(times_bf16["segment_sum"])}
+        kernels.append(entry)
     kernels.append({
         "name": "knn_walk", "route": "cuda",
         "source": "kmcuda_torch/csrc/knn_walk.cu",
-        "replaces": "kmcuda_tpu/ops/knn_pallas.py:150", **knn})
+        "replaces": "kmcuda_tpu/ops/knn_pallas.py:150", **knn,
+        "library_ms": None, "library": "no single call"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -793,6 +916,28 @@ def time_walk(tag, args, kw, reps=3):
     return ms, plain_ms
 
 
+def walk_bound(args, kw):
+    """B3's bound on one batch (``roofline.walk_bound``): the pairs its
+    walks examined, and the distinct member rows of the tiles they
+    visited, from one more run of the kernel on the batch."""
+    _bi, examined, steps = KK.walk(*args, **kw)
+    tile_order, tile_nvalid = args[6].cpu(), args[8].cpu()
+    group, nt = kw["group"], tile_nvalid.shape[0]
+    visited = torch.zeros(nt, dtype=torch.bool)
+    for c, s in enumerate(steps.cpu().tolist()):
+        tiles = tile_order[c, :s * group].long()
+        visited[tiles[tiles < nt]] = True
+    xq = args[0]
+    bnd = R.walk_bound(int(examined.sum()), int(tile_nvalid[visited].sum()),
+                       xq.shape[0], xq.shape[1], kw["kk"], steps.numel(),
+                       str(xq.dtype)[6:])
+    print("B3 bound on %d chunks: %d examined pairs, %d distinct member "
+          "rows: %.4f ms (%s)" % (steps.numel(), int(examined.sum()),
+                                  int(tile_nvalid[visited].sum()),
+                                  bnd["ms"], bnd["by"]), flush=True)
+    return bnd
+
+
 def fraction(log: str) -> float:
     lines = [l for l in log.splitlines() if l.startswith("calculated ")]
     if not lines:
@@ -819,6 +964,7 @@ def knn_phase(tag):
                                b["kn"], L2, nchunks // 2 - 16, 32)
     errs.append(out["max_abs_err"])
     ms, plain_ms = time_walk(tag, args, kw)
+    bnd = walk_bound(args, kw)
     del plan, args, kw
 
     # 2: the public call; the walk launch count is read from this run
@@ -916,7 +1062,8 @@ def knn_phase(tag):
 
     check_small_knn_agreement()
     return {"launches": launches, "max_abs_err": max(errs), "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": bnd["ms"],
+            "bound_by": bnd["by"]}
 
 
 def check_small_knn_agreement():

@@ -6,6 +6,9 @@ library with a plain C interface, loaded with ``ctypes``, at first use,
 into ``build/kmcuda_torch/`` at the root of the checkout.  The library's
 name carries a hash of the sources and flags, so an edit rebuilds.  A
 failed build raises with the compiler's output; there is no fallback.
+The compilers' output of a build that succeeds (``ptxas -v``: registers,
+shared memory and spills of every kernel) is kept beside the library, in
+:func:`build_log_path`.
 """
 
 import ctypes
@@ -27,7 +30,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int64
 #: C entry -> argtypes (pointers and the stream as void*, sizes as int64)
 _SIGNATURES = {
-    "kmt_assign": [_P] * 9 + [_I] * 5 + [_P],
+    "kmt_assign": [_P] * 10 + [_I] * 5 + [_P],
     "kmt_segment_sum": [_P] * 5 + [_I] * 5 + [_P],
     "kmt_knn_walk": [_P] * 17 + [_I] * 12 + [_P],
 }
@@ -59,6 +62,10 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / ("libkmcuda_torch_%s.so" % digest.hexdigest()[:16])
 
 
+def build_log_path() -> pathlib.Path:
+    return library_path().with_suffix(".log")
+
+
 def build() -> pathlib.Path:
     """Compile the library unless a build of these sources exists; returns
     its path."""
@@ -69,7 +76,7 @@ def build() -> pathlib.Path:
     tag = "%s.%d" % (out.stem, os.getpid())
     cus = [src for src in sources() if src.suffix == ".cu"]
     objs = [str(BUILD_DIR / ("%s.%s.o" % (tag, src.stem))) for src in cus]
-    cmds = [[nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+    cmds = [[nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj, str(src)]
             for obj, src in zip(objs, cus)]
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
@@ -85,6 +92,10 @@ def build() -> pathlib.Path:
     if proc.returncode != 0:
         raise KMTPURuntimeError("nvcc failed (%d): %s\n%s%s" % (
             proc.returncode, " ".join(link), proc.stdout, proc.stderr))
+    log = out.with_suffix(".%d.logtmp" % os.getpid())
+    log.write_text("".join("$ %s\n%s" % (" ".join(cmd), text)
+                           for cmd, text in zip(cmds, logs)))
+    os.replace(log, build_log_path())
     os.replace(tmp, out)
     return out
 

@@ -79,22 +79,62 @@ def segment_parts(n: int, k: int, f: int) -> int:
     return max(1, min(cap, -(-n // SEGMENT_MIN_ROWS), SEGMENT_MAX_PARTS))
 
 
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """fp32 -> the nearest TF32 value (10 mantissa bits, ties away from
+    zero), as fp32 with its low 13 mantissa bits zero: what PTX's
+    ``cvt.rna.tf32.f32`` gives.  Non-finite values pass through."""
+    bits = v.contiguous().view(torch.int32)
+    r = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(v), r, v)
+
+
+def tf32_split(v: torch.Tensor) -> tuple:
+    """(hi, lo) of fp32 ``v`` for 3xTF32 products: hi = tf32(v), lo =
+    tf32(v - hi); v - hi is exact, so hi + lo differs from v by at most
+    the rounding of lo (2**-11 relative to lo).  The kernel splits x
+    tiles the same way with ``cvt.rna.tf32.f32``."""
+    hi = tf32_round(v)
+    return hi, tf32_round(v - hi)
+
+
 def _launch_assign(lib, x, valid, prev_assign, centroids, k, metric,
                    stream):
     n, f = x.shape
     panel, c_sq = pad_clusters(centroids, x.dtype)
+    # fp32 storage: the kernel's 3xTF32 products take the panel split
+    panel, panel_lo = ((panel, None) if x.dtype == torch.bfloat16
+                       else tf32_split(panel))
     ctab = rescore_table(centroids)
     aid = torch.empty((n,), dtype=torch.int32, device=x.device)
     best = torch.empty((n,), dtype=torch.float32, device=x.device)
     changed = torch.zeros((1,), dtype=torch.int32, device=x.device)
     code = lib.kmt_assign(
-        x.data_ptr(), panel.data_ptr(), c_sq.data_ptr(), ctab.data_ptr(),
-        valid.data_ptr(), prev_assign.data_ptr(), aid.data_ptr(),
-        best.data_ptr(), changed.data_ptr(), n, f, k,
+        x.data_ptr(), panel.data_ptr(),
+        None if panel_lo is None else panel_lo.data_ptr(), c_sq.data_ptr(),
+        ctab.data_ptr(), valid.data_ptr(), prev_assign.data_ptr(),
+        aid.data_ptr(), best.data_ptr(), changed.data_ptr(), n, f, k,
         int(x.dtype == torch.bfloat16),
         int(metric == D.DistanceMetric.COSINE), stream)
     _build.check(lib, code, "kmt_assign")
     return aid, best, changed[0]
+
+
+def launch_segment_sum(lib, x, aid, k, stream):
+    """``kmt_segment_sum`` of x over ``aid``: (sums (k, f) fp32, counts
+    (k,) int32).  The second half of :func:`fused_lloyd_pass`; counts no
+    launch of its own."""
+    n, f = x.shape
+    parts = segment_parts(n, k, f)
+    sums = torch.empty((k, f), dtype=torch.float32, device=x.device)
+    counts = torch.zeros((k,), dtype=torch.int32, device=x.device)
+    partial = torch.empty((parts * k * f if parts > 1 else 1,),
+                          dtype=torch.float32, device=x.device)
+    code = lib.kmt_segment_sum(
+        x.data_ptr(), aid.data_ptr(), partial.data_ptr(), sums.data_ptr(),
+        counts.data_ptr(), n, f, k, parts, int(x.dtype == torch.bfloat16),
+        stream)
+    _build.check(lib, code, "kmt_segment_sum")
+    return sums, counts
 
 
 def assign_only_pass(x, valid, prev_assign, centroids, *, n_clusters: int,
@@ -125,22 +165,12 @@ def fused_lloyd_pass(x, valid, prev_assign, centroids, *, n_clusters: int,
             x, valid, prev_assign, centroids, n_clusters=n_clusters,
             metric=metric)
     k = n_clusters
-    n, f = x.shape
     lib = _build.library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         aid, best, changed = _launch_assign(
             lib, x, valid, prev_assign, centroids, k, metric, stream)
-        parts = segment_parts(n, k, f)
-        sums = torch.empty((k, f), dtype=torch.float32, device=x.device)
-        counts = torch.zeros((k,), dtype=torch.int32, device=x.device)
-        partial = torch.empty((parts * k * f if parts > 1 else 1,),
-                              dtype=torch.float32, device=x.device)
-        code = lib.kmt_segment_sum(
-            x.data_ptr(), aid.data_ptr(), partial.data_ptr(),
-            sums.data_ptr(), counts.data_ptr(), n, f, k, parts,
-            int(x.dtype == torch.bfloat16), stream)
-        _build.check(lib, code, "kmt_segment_sum")
+        sums, counts = launch_segment_sum(lib, x, aid, k, stream)
     LAUNCHES["fused_lloyd_pass"] += 1
     return aid, best, sums, counts, changed
 

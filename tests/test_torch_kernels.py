@@ -8,11 +8,13 @@ Every test here needs a CUDA device and skips without one.  On the card:
 machine does not need.)  Tolerances, as in chip_smoke.py: assignments are
 equal except at near-ties (``K.near_ties``: consecutive plain top-3 scores
 within 1e-5 * max(1, |s1|), or the rescore's two exact squared distances
-within 1e-5 * max(1, d2)); best scores agree to rtol 1e-5; sums to
-rtol 1e-5 and atol 1e-5 * mean |x| (fp32 sums in another order), always
-against the plain segment sum of the kernel's own assignment, and also
-against the plain twin's wherever no assignment differs; counts and the
-reassignment count are equal wherever the assignments are.  The whole
+within 1e-5 * max(1, d2)); best scores agree to rtol 1e-5 (here plus 1e-6
+of |x|^2 + |c|^2, the size of the terms that cancel in them, for the f = 3
+case: ``_assert_best_close``); sums to rtol 1e-5 and atol 1e-5 * mean |x|
+(fp32 sums in another order), always against the plain segment sum of the
+kernel's own assignment, and also against the plain twin's wherever no
+assignment differs; counts and the reassignment count are equal wherever
+the assignments are.  The whole
 call on the card against the same call on the CPU is checked by
 chip_smoke.py.
 """
@@ -50,7 +52,35 @@ def _problem(dev, n, f, k, dtype, metric, ragged, seed=0):
     return (x.to(dev, dtype), valid.to(dev), prev.to(dev), c.to(dev))
 
 
-CASES = [(20011, 70, 300, True), (1000, 3, 5, False), (4096, 256, 1024, True)]
+def _assert_best_close(best, best_r, x, c, aid):
+    """Best scores within rtol 1e-5 of the twin's plus 1e-6 of |x|^2 +
+    |c|^2 of the row and its centroid: the size of the terms that cancel in
+    |c|^2 - 2 x.c (L2), and a bound on |x.c| (cosine).  The fp32 kernel's
+    3xTF32 products round otherwise than the twin's FMA chain; where a
+    score cancels to near 0 (the f = 3 case), an ulp of those terms is
+    past 1e-5 of the score, for the twin against fp64 as much as for the
+    kernel.  Prints the measured differences beside the tolerance."""
+    a = aid.long()
+    own = a < c.shape[0]                 # invalid rows have id k, x = 0
+    size = D.row_sq_norms(x.float())
+    size[own] += D.row_sq_norms(c.float())[a[own]]
+    gap = (best - best_r).abs()
+    past = gap > 1e-5 * best_r.abs()
+    worst = float((gap[past] / size[past]).max()) if past.any() else 0.0
+    print("best scores: max |d| %.3g; %d rows past rtol 1e-5, largest "
+          "|d| / (|x|^2 + |c|^2) there %.3g (tolerance 1e-6)"
+          % (float(gap.max()) if gap.numel() else 0.0, int(past.sum()),
+             worst))
+    assert bool((gap <= 1e-5 * best_r.abs() + 1e-6 * size).all()), worst
+
+
+# (n, f, k, ragged): the kernel tiles 128 rows by 128 centroid columns and
+# walks features in 128-byte chunks, so besides the main-path shape these
+# cover k < 128 (k = 5, 2), k not a multiple of 128 (300, 1000), f whose
+# bf16 rows are not 16-byte aligned (70, 3, 251: the plain-load path), and
+# n < 128 (3)
+CASES = [(20011, 70, 300, True), (1000, 3, 5, False), (4096, 256, 1024, True),
+         (4099, 251, 1000, True), (3, 64, 2, False)]
 
 
 @pytest.mark.parametrize("metric", [D.DistanceMetric.L2,
@@ -69,7 +99,7 @@ def test_kernels_match_plain(cuda, n, f, k, ragged, dtype, metric):
     differ = aid != aid_r
     assert not (differ & ~K.near_ties(x, c, metric)).any()
     same = ~differ
-    torch.testing.assert_close(best[same], best_r[same], rtol=1e-5, atol=0)
+    _assert_best_close(best[same], best_r[same], x[same], c, aid[same])
     atol = 1e-5 * float(x.float().abs().mean())
     sums_own, counts_own = K.segment_sum_reference(x, aid, k)
     assert torch.equal(counts, counts_own)
