@@ -9,8 +9,14 @@ data, tolerance 0.002, at most 60 iterations, against ``yinyang_t=0``),
 ``spherical`` (AFK-MC2, m=100, and the 20-iteration cosine call at
 1,000,000 x 256 unit rows), ``bf16`` (Yinyang against Lloyd at
 1,000,000 x 256 bf16, random init, tolerance 0, 30 iterations) and
-``knn`` (``knn_cuda`` at 1,000,000 x 256 fp32 blobs, k=1024, 16-NN).  The
-data is ``chip_smoke.py``'s.
+``knn`` (``knn_cuda`` at 1,000,000 x 256 fp32 blobs, k=1024, 16-NN) and
+``walk`` (the walk kernel alone, ``knn_kernels.walk``, on 32 query chunks
+from the middle of that layout at 16 and 32 neighbours, kk = 32 and 48,
+in fp32 and in bf16 storage of the same rows and clustering: CUDA-event
+ms per launch, mean of 5, twice in turns).  The data is
+``chip_smoke.py``'s.  The ``walk`` phase uses only entry points that
+earlier versions of the port have too, so a copy of this script times an
+older checkout's kernel on the same inputs.
 
 For each: untraced walls (synchronized), then one warm run under
 ``torch.profiler``: the traced wall, the device busy time (the union of the
@@ -31,11 +37,13 @@ from torch.profiler import ProfilerActivity, profile
 import chip_smoke as S
 from kmcuda_torch import kmeans_cuda, knn_cuda
 from kmcuda_torch.models import initialization as I
+from kmcuda_torch.models import knn as TK
 from kmcuda_torch.models.problem import prepare
 from kmcuda_torch.ops import distance as D
+from kmcuda_torch.ops import knn_kernels as KK
 from kmcuda_torch.utils.logging import Logger
 
-PHASES = ("init", "default", "spherical", "bf16", "knn")
+PHASES = ("init", "default", "spherical", "bf16", "knn", "walk")
 
 
 def traced(card, label, fn, top=14):
@@ -172,6 +180,28 @@ def main(phases) -> int:
         nn()
         untraced(card, "knn_cuda 1000000x256 fp32 k=1024 16-NN", nn)
         traced(card, "knn_cuda 1000000x256 fp32 k=1024 16-NN", nn)
+
+    if "walk" in phases:
+        b = S.KNN_BENCH
+        xk, centers = S.blobs_on_card(b["n"], b["f"], b["k"], 11)
+        c, a = S.cluster(xk, centers, L2)
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = S.knn_plan(xk.to(dtype), c, a, L2)
+            base = plan.m_total // plan.q_chunk // 2 - 16
+            for kn in (16, 32):
+                args, kw = TK.batch_walk_inputs(plan, base, 32,
+                                                k_neighbors=kn,
+                                                n_clusters=b["k"], metric=L2)
+                fn = lambda: KK.walk(*args, **kw)
+                fn()
+                ms = [S.time_ms(fn, 5) for _ in range(2)]
+                print("[%s] walk kernel 32 chunks x %d rows of %dx%d %s, "
+                      "%d-NN (kk %d): %s ms" % (
+                          card, kw["chunk"], b["n"], b["f"], str(dtype)[6:],
+                          kn, kw["kk"], ", ".join("%.4f" % t for t in ms)),
+                      flush=True)
+            del plan, args, kw
+        del xk, c, a
 
     print("[%s] peak memory %.2f GB"
           % (card, torch.cuda.max_memory_allocated() / 1e9), flush=True)

@@ -57,8 +57,12 @@ Tolerances (kernel vs plain twin on the same tensors):
 - B3 (``ops.knn_kernels.compare_walks``, after the shared exact rescore):
   per-chunk examined counts equal unless the step where the walks part has
   its bound within 1e-5 relative of tau; neighbour ids equal except where
-  their fp64 distance profiles agree to rtol 1e-6 (ties); distances
-  rtol 1e-6 where the ids are equal.
+  their fp64 distance profiles agree to rtol 1e-6 (ties) or, for bf16
+  cosine alone (ROADMAP §C6), where the two candidate buffers part only at
+  their kk-th walk distance, within a change of the dot products by
+  2^-20 sum_j |q_j m_j| (``walk_tie``), and on those rows the kernel finds
+  at least as many exact fp64 neighbours as the twin (``exact_hits``);
+  distances rtol 1e-6 where the ids are equal.
 """
 
 import contextlib
@@ -189,6 +193,7 @@ def check_kernels(errs):
                     raise AssertionError("B1 and B2 differ")
                 if not torch.equal(b1[2], b1_again[2]):
                     raise AssertionError("B1 sums do not repeat bitwise")
+                plan = K.segment_plan(n, f, k, x.element_size())
                 if ragged and not bool((b1[0][~valid] == k).all()):
                     raise AssertionError("invalid rows not assigned k")
                 errs["fused_lloyd_pass"] = max(
@@ -197,11 +202,11 @@ def check_kernels(errs):
                     errs["assign_only_pass"], best_err)
                 print("check %dx%d k=%d %s %s: ok; %d near-tie rows, %d "
                       "assignments differ there; max |d best| %.3g, max "
-                      "|d sums| %.3g (%d row ranges); B1 == B2 bitwise; B1 "
-                      "sums repeat bitwise"
+                      "|d sums| %.3g (%d chunks of %d rows); B1 == B2 "
+                      "bitwise; B1 sums repeat bitwise"
                       % (n, f, k, str(dtype)[6:], metric.name,
                          int(ties.sum()), int(differ.sum()), best_err,
-                         sums_err, K.segment_parts(n, k, f)), flush=True)
+                         sums_err, -(-n // plan.chunk), plan.chunk), flush=True)
                 del x, valid, prev, c, ref, b1, b2, b1_again, sums_own
 
 
@@ -218,32 +223,59 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+#: the kernels whose ptxas lines kernel_report prints
+KERNEL_NAMES = ("assign_kernel", "walk_kernel", "seg_count_kernel",
+                "seg_scan_kernel", "seg_starts_kernel", "seg_place_kernel",
+                "seg_reduce_kernel", "seg_fix_kernel")
+
+
+def _kernel_name(mangled: str):
+    """'assign_kernel<bf16>' etc. for a mangled name, or None."""
+    for name in KERNEL_NAMES:
+        if name in mangled:
+            if name in ("assign_kernel", "walk_kernel", "seg_reduce_kernel"):
+                return "%s<%s>" % (name, "bf16" if "nv_bfloat16" in mangled
+                                   else "float")
+            return name
+    return None
+
+
 def kernel_report():
-    """ptxas's registers, shared memory and spills of each assignment
-    kernel instantiation (from the build log), and the HGMMA (wgmma)
-    instructions in their SASS (``cuobjdump -sass`` of the built library);
-    fails unless both instantiations run on wgmma.  Returns the counts."""
+    """ptxas's registers, shared memory and spills of every kernel (from
+    the build log), the HGMMA (wgmma) instructions in the SASS of the
+    assignment and walk kernels (``cuobjdump -sass`` of the built library),
+    and the float atomics in the segment sum's SASS; fails unless both
+    instantiations of each run on wgmma and the segment sum has no float
+    atomic.  Returns the HGMMA counts."""
     log = _build.build_log_path().read_text().splitlines()
     for i, line in enumerate(log):
-        if "Compiling entry function" in line and "assign_kernel" in line:
-            kind = "bf16" if "nv_bfloat16" in line else "float"
-            print("ptxas assign_kernel<%s>: %s; %s"
-                  % (kind, log[i + 3].split(":", 1)[1].strip(),
+        name = ("Compiling entry function" in line) and _kernel_name(line)
+        if name:
+            print("ptxas %s: %s; %s"
+                  % (name, log[i + 3].split(":", 1)[1].strip(),
                      log[i + 2].strip()), flush=True)
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path())],
                           capture_output=True, text=True, check=True).stdout
     counts = {}
+    float_atomics = 0
     for section in sass.split("Function : ")[1:]:
-        name = section.split("\n", 1)[0]
-        if "assign_kernel" in name:
-            kind = "bf16" if "nv_bfloat16" in name else "float"
-            counts[kind] = section.count("HGMMA")
-    print("SASS HGMMA instructions: assign_kernel<bf16> %d, "
-          "assign_kernel<float> %d" % (counts.get("bf16", 0),
-                                       counts.get("float", 0)), flush=True)
-    if not (counts.get("bf16") and counts.get("float")):
-        raise AssertionError("assign_kernel does not run on wgmma")
+        name = _kernel_name(section.split("\n", 1)[0])
+        if name and not name.startswith("seg_"):
+            counts[name] = section.count("HGMMA")
+        elif name:
+            float_atomics += sum(
+                1 for l in section.splitlines()
+                if ("ATOM" in l or "RED" in l) and "F32" in l)
+    print("SASS HGMMA instructions: %s; float atomics in the segment sum: "
+          "%d" % (", ".join("%s %d" % kv for kv in sorted(counts.items())),
+                  float_atomics), flush=True)
+    for name in ("assign_kernel<bf16>", "assign_kernel<float>",
+                 "walk_kernel<bf16>", "walk_kernel<float>"):
+        if not counts.get(name):
+            raise AssertionError("%s does not run on wgmma" % name)
+    if float_atomics:
+        raise AssertionError("the segment sum has float atomics")
     return counts
 
 
@@ -850,15 +882,19 @@ def check_walk(label, plan, k, kn, metric, chunk_base, n_chunks):
                                     metric=metric)
     out = KK.compare_walks(args, kw)
     torch.cuda.synchronize()
-    in_smem = kw["kk"] * kw["chunk"] * 8 <= KK.SMEM_BUFFER_BYTES
+    in_smem = (kw["kk"] * kw["chunk"] * 8
+               <= KK.smem_buffer_bytes(args[0].dtype))
     print("check B3 %s: ok; chunks %d..%d of %d (kk %d, chunk %d, tile_m "
-          "%d, group %d, buffer in %s); %d tie rows, %d chunks' examined "
-          "differ, examined %d, max |d dist| %.3g"
+          "%d, group %d, buffer in %s); %d tie rows (%d of them where the "
+          "candidate buffers part at their edge; exact fp64 neighbours "
+          "there: kernel %d, plain %d), %d chunks' examined differ, "
+          "examined %d, max |d dist| %.3g"
           % (label, chunk_base, chunk_base + n_chunks - 1,
              plan.m_total // plan.q_chunk, kw["kk"], kw["chunk"],
              plan.tile_m, plan.group, "shared memory" if in_smem
-             else "global scratch", out["tie_rows"], out["chunks_differ"],
-             out["examined"], out["max_abs_err"]), flush=True)
+             else "global scratch", out["tie_rows"], out["edge_rows"],
+             *out["edge_hits"], out["chunks_differ"], out["examined"],
+             out["max_abs_err"]), flush=True)
     return out, args, kw
 
 
@@ -902,18 +938,21 @@ def check_recall(x, nb, kn, nq=1024, seed=13):
 
 def time_walk(tag, args, kw, reps=3):
     """B3 and walk_reference on one batch, in turns (plain, kernel,
-    kernel, plain); returns (ms, plain_ms)."""
+    kernel, plain), and B3's bound on it; returns {ms, plain_ms, bound_ms,
+    bound_by, chunks}."""
     p1 = time_ms(lambda: KK.walk_reference(*args, **kw), reps)
     k1 = time_ms(lambda: KK.walk(*args, **kw), reps)
     k2 = time_ms(lambda: KK.walk(*args, **kw), reps)
     p2 = time_ms(lambda: KK.walk_reference(*args, **kw), reps)
     ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    chunks = args[0].shape[0] // kw["chunk"]
+    bnd = walk_bound(args, kw)
     print("%s time knn_walk %d chunks x %d rows, f=%d, kk=%d: kernel %.4f "
-          "ms, plain %.4f ms (%.4f/%.4f, %.4f/%.4f)"
-          % (tag, args[0].shape[0] // kw["chunk"], kw["chunk"],
-             args[0].shape[1], kw["kk"], ms, plain_ms, k1, k2, p1, p2),
-          flush=True)
-    return ms, plain_ms
+          "ms, plain %.4f ms (%.4f/%.4f, %.4f/%.4f), bound %.4f ms (%s)"
+          % (tag, chunks, kw["chunk"], args[0].shape[1], kw["kk"], ms,
+             plain_ms, k1, k2, p1, p2, bnd["ms"], bnd["by"]), flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd["ms"],
+            "bound_by": bnd["by"], "chunks": chunks}
 
 
 def walk_bound(args, kw):
@@ -957,15 +996,19 @@ def knn_phase(tag):
     torch.cuda.synchronize()
     errs = []
 
-    # 1(a): 32 chunks from the middle of the bench layout, then 5: timing
+    # 1(a): 32 chunks from the middle of the bench layout, and one full
+    # 65,536-query batch (256 chunks, as knn_cuda launches it): timing
     plan = knn_plan(x, c, a, L2)
     nchunks = plan.m_total // plan.q_chunk
     out, args, kw = check_walk("1000000x256 fp32 L2 kn=16", plan, b["k"],
                                b["kn"], L2, nchunks // 2 - 16, 32)
     errs.append(out["max_abs_err"])
-    ms, plain_ms = time_walk(tag, args, kw)
-    bnd = walk_bound(args, kw)
-    del plan, args, kw
+    walk_times = time_walk(tag, args, kw)
+    batch = TK.batch_walk_inputs(plan, nchunks // 2 - 128, 256,
+                                 k_neighbors=b["kn"], n_clusters=b["k"],
+                                 metric=L2)
+    walk_times["full_batch"] = time_walk(tag, *batch)
+    del plan, args, kw, batch
 
     # 2: the public call; the walk launch count is read from this run
     KK.reset_launch_counts()
@@ -1061,9 +1104,9 @@ def knn_phase(tag):
     del x, c, a, plan
 
     check_small_knn_agreement()
-    return {"launches": launches, "max_abs_err": max(errs), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bnd["ms"],
-            "bound_by": bnd["by"]}
+    full = walk_times.pop("full_batch")
+    return {"launches": launches, "max_abs_err": max(errs), **walk_times,
+            "full_batch": full}
 
 
 def check_small_knn_agreement():

@@ -40,7 +40,7 @@ from kmcuda_torch.models import lloyd as L
 from kmcuda_torch.models import yinyang as Y
 from kmcuda_torch.models.problem import prepare
 from kmcuda_torch.ops.distance import DistanceMetric, disable_tf32, metrics
-from kmcuda_torch.parallel.devices import device_for
+from kmcuda_torch.parallel.devices import device_for, memory_report
 from kmcuda_torch.utils import validation as V
 from kmcuda_torch.utils.errors import KMTPUInvalidArguments
 from kmcuda_torch.utils.logging import Logger
@@ -128,6 +128,11 @@ def kmeans_torch(samples, clusters, tolerance=0.01, init="k-means++",
     centroids = I.init_centroids(problem, init_e, seed, afkmc2_m=afkmc2_m,
                                  imported=imported)
     assignments = L.new_assignments(problem)
+    if verbosity > 1:
+        # the memory line once the working set is resident, where the JAX
+        # package prints its per-device memory stats
+        for line in memory_report(dev):
+            logger.debug(line)
     groups = int(yinyang_t * k)
     if groups > 0 and tolerance < config.YINYANG_MIN_TOLERANCE:
         centroids, assignments, _best, iters = Y.run(
@@ -189,6 +194,9 @@ def knn_torch(k, samples, centroids, assignments, metric="L2", device=0,
     else:
         cents = torch.tensor(np.asarray(centroids, dtype=np.float32),
                              device=dev)
+    if verbosity > 1:
+        for line in memory_report(dev):
+            logger.debug(line)
     nbr, _dist = KNN.run(problem, cents, _knn_assignments(assignments, dev),
                          k)
     if isinstance(samples, torch.Tensor):

@@ -81,6 +81,16 @@ def prepare(samples, k: int, metric: DistanceMetric, device: torch.device,
                  "device=%s, valid=%d"
                  % (n, features, k, str(dtype).replace("torch.", ""),
                     device, n_valid))
+    # the JAX package's split plan (one line per device; here one device
+    # holds rows [0, n) as one chunk) and, at verbosity 3, its allocation map
+    logger.debug("plan: %s rows [0, %d) (1 chunks, %.1f MB samples)"
+                 % (device, n, x.numel() * x.element_size() / 2**20))
+    for name, arr in (("x", x), ("x_sq", x_sq), ("valid", valid),
+                      ("assign0", assign0)):
+        logger.trace("alloc %-8s %-14s %-9s %8.1f MB sharded over 1"
+                     % (name, tuple(arr.shape),
+                        str(arr.dtype).replace("torch.", ""),
+                        arr.numel() * arr.element_size() / 2**20))
     return Problem(logger=logger, n=n, features=features, k=k, metric=metric,
                    device=device, dtype=dtype, x=x, x_sq=x_sq, valid=valid,
                    assign0=assign0, n_valid=n_valid)

@@ -31,7 +31,7 @@ _I = ctypes.c_int64
 #: C entry -> argtypes (pointers and the stream as void*, sizes as int64)
 _SIGNATURES = {
     "kmt_assign": [_P] * 10 + [_I] * 5 + [_P],
-    "kmt_segment_sum": [_P] * 5 + [_I] * 5 + [_P],
+    "kmt_segment_sum": [_P] * 6 + [_I] * 9 + [_P],
     "kmt_knn_walk": [_P] * 17 + [_I] * 12 + [_P],
 }
 
@@ -112,6 +112,8 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.kmt_error_string.argtypes = [ctypes.c_int]
             lib.kmt_error_string.restype = ctypes.c_char_p
+            lib.kmt_knn_walk_smem_buffer_bytes.argtypes = [_I]
+            lib.kmt_knn_walk_smem_buffer_bytes.restype = _I
             _lib = lib
     return _lib
 

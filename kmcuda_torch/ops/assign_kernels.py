@@ -7,13 +7,16 @@
   replaces ``_kernel_assign_only``.
 
 On a CUDA tensor each wrapper launches the hand-written kernels of
-``csrc/assign.cu`` (built at first use, see ``ops._build``); B1 is the B2
-kernel followed by the segment-sum kernels, so the two give bitwise equal
-assignments, best scores and counts.  On a CPU tensor — and only there —
+``csrc/assign.cu`` (B2) and ``csrc/segment.cu`` (the segment sum), built
+at first use (see ``ops._build``); B1 is the B2 kernel followed by the
+segment-sum kernels, so the two give bitwise equal assignments, best
+scores and counts.  On a CPU tensor — and only there —
 the wrapper runs the plain twin (``*_reference``), which the CPU tests
 hold against the JAX package and ``chip_smoke.py`` holds the kernels
 against on the card.  Any other device raises.
 """
+
+import typing
 
 import torch
 
@@ -27,12 +30,12 @@ LAUNCHES = {"fused_lloyd_pass": 0, "assign_only_pass": 0}
 
 #: the plain twins score this many (row, centroid) pairs per chunk
 REFERENCE_CHUNK_ELEMENTS = 1 << 26
-#: bound on the segment sum's per-range partial buffers
-SEGMENT_SCRATCH_BYTES = 1 << 28
-#: the segment sum gives each row range at least this many rows
-SEGMENT_MIN_ROWS = 512
-#: CUDA grid limit on the number of row ranges (gridDim.y)
-SEGMENT_MAX_PARTS = 65535
+#: the segment sum's threads per block (``csrc/segment.cu``)
+SEGMENT_THREADS = 256
+#: the segment sum's reduction cuts the sorted rows into at most this many
+#: chunks, of at least SEGMENT_MIN_CHUNK rows
+SEGMENT_MAX_CHUNKS = 4096
+SEGMENT_MIN_CHUNK = 64
 
 
 def reset_launch_counts() -> None:
@@ -70,13 +73,36 @@ def _check_args(x, valid, prev_assign, centroids, k: int) -> None:
         raise KMTPUInvalidArguments("unsupported device %s" % x.device)
 
 
-def segment_parts(n: int, k: int, f: int) -> int:
-    """Number of row ranges of the segment sum: enough to fill the card,
-    at least SEGMENT_MIN_ROWS rows each, partials within the scratch cap.
-    A pure function of the shape, so the summation order — hence the
-    sums — repeat bitwise."""
-    cap = max(1, SEGMENT_SCRATCH_BYTES // (4 * k * f))
-    return max(1, min(cap, -(-n // SEGMENT_MIN_ROWS), SEGMENT_MAX_PARTS))
+class SegmentPlan(typing.NamedTuple):
+    """The cut of ``kmt_segment_sum`` at one shape: what the kernel takes,
+    and the scratch it needs (the kernel refuses scratch shorter than its
+    own count)."""
+
+    rows: int           # rows per placement block, >= k, a multiple of 256
+    chunk: int          # sorted positions per reduction chunk
+    tx: int             # threads across a row's features (divides 256)
+    int_scratch: int    # int32: table, starts, permutation, sorted ids
+    float_scratch: int  # fp32: two partial rows per chunk
+
+
+def _pow2_at_least(v: int) -> int:
+    return 1 << max(0, int(v) - 1).bit_length()
+
+
+def segment_plan(n: int, f: int, k: int, itemsize: int) -> SegmentPlan:
+    """The segment sum's cut for x (n, f) of ``itemsize`` bytes and k
+    clusters: a pure function of the shape, so the summation order (hence
+    the sums) repeats bitwise.  Placement blocks hold at least k rows, so
+    the (k, blocks) table stays within n + k entries; reduction chunks hold
+    at least SEGMENT_MIN_CHUNK rows and there are at most
+    SEGMENT_MAX_CHUNKS, so the partials stay within 2 * 4096 * f floats."""
+    rows = 256 * -(-max(1024, k) // 256)
+    chunk = max(SEGMENT_MIN_CHUNK,
+                _pow2_at_least(-(-n // SEGMENT_MAX_CHUNKS)))
+    tx = min(SEGMENT_THREADS,
+             max(32, _pow2_at_least(-(-f // (16 // itemsize)))))
+    return SegmentPlan(rows, chunk, tx, -(-n // rows) * k + k + 1 + 2 * n,
+                       2 * -(-n // chunk) * f)
 
 
 def tf32_round(v: torch.Tensor) -> torch.Tensor:
@@ -124,15 +150,18 @@ def launch_segment_sum(lib, x, aid, k, stream):
     (k,) int32).  The second half of :func:`fused_lloyd_pass`; counts no
     launch of its own."""
     n, f = x.shape
-    parts = segment_parts(n, k, f)
+    plan = segment_plan(n, f, k, x.element_size())
     sums = torch.empty((k, f), dtype=torch.float32, device=x.device)
-    counts = torch.zeros((k,), dtype=torch.int32, device=x.device)
-    partial = torch.empty((parts * k * f if parts > 1 else 1,),
-                          dtype=torch.float32, device=x.device)
+    counts = torch.empty((k,), dtype=torch.int32, device=x.device)
+    iscratch = torch.empty((plan.int_scratch,), dtype=torch.int32,
+                           device=x.device)
+    fscratch = torch.empty((plan.float_scratch,), dtype=torch.float32,
+                           device=x.device)
     code = lib.kmt_segment_sum(
-        x.data_ptr(), aid.data_ptr(), partial.data_ptr(), sums.data_ptr(),
-        counts.data_ptr(), n, f, k, parts, int(x.dtype == torch.bfloat16),
-        stream)
+        x.data_ptr(), aid.data_ptr(), iscratch.data_ptr(),
+        fscratch.data_ptr(), sums.data_ptr(), counts.data_ptr(), n, f, k,
+        plan.rows, plan.chunk, plan.tx, plan.int_scratch, plan.float_scratch,
+        int(x.dtype == torch.bfloat16), stream)
     _build.check(lib, code, "kmt_segment_sum")
     return sums, counts
 

@@ -28,9 +28,6 @@ from kmcuda_torch.utils.errors import KMTPUInvalidArguments
 #: kernel launches per entry; the wrapper adds one where it launches
 LAUNCHES = {"knn_walk": 0}
 
-#: the kernel keeps a chunk's (distance, id) buffer in shared memory up to
-#: this size, and in a global scratch beyond it
-SMEM_BUFFER_BYTES = 128 * 1024
 #: members per sub-tile of the kernel; tile_m must be a multiple
 KERNEL_TILE_N = 64
 
@@ -44,6 +41,15 @@ COS_ENV = float(np.float32(np.sqrt(2.0 * 2.0 ** -8)))
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def smem_buffer_bytes(dtype) -> int:
+    """The largest (distance, id) buffer of a chunk, kk * chunk * 8 bytes,
+    that the kernel keeps in shared memory for this storage dtype (what
+    its ring leaves of 227 KB, from the kernel library); a larger one goes
+    to a global scratch."""
+    return int(_build.library().kmt_knn_walk_smem_buffer_bytes(
+        int(dtype == torch.bfloat16)))
 
 
 def _check_args(xq, xq_sq, q_pos, q_valid, n_qvalid, n_steps, tile_order,
@@ -129,7 +135,7 @@ def walk(xq, xq_sq, q_pos, q_valid, n_qvalid, n_steps, tile_order,
     nb, f = xq.shape
     nchunks = nb // chunk
     dev = xq.device
-    in_smem = kk * chunk * 8 <= SMEM_BUFFER_BYTES
+    in_smem = kk * chunk * 8 <= smem_buffer_bytes(xq.dtype)
     lib = _build.library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -156,6 +162,65 @@ def walk(xq, xq_sq, q_pos, q_valid, n_qvalid, n_steps, tile_order,
     return bi, examined, steps
 
 
+#: a walk's fp32 dot products may differ from the exact ones by this much
+#: relative to sum_j |q_j m_j| (8 fp32 ulps of a sum in [1, 2): the
+#: kernel's fresh-accumulator stages, 3xTF32 or bf16, summed rounded to
+#: nearest, and cuBLAS's fp32 product alike; the bound
+#: tests/test_torch_tf32.py holds the 3xTF32 products to)
+DOT_ROUNDING = 2.0 ** -20
+
+
+def walk_tie(q, self_pos, ids, xm, m_spos):
+    """True when a full kk-wide candidate buffer of one cosine query row
+    (packed ids, -1 empty) is the top kk of the exact cosine walk up to
+    the products' rounding at its edge.  The exact walk ranks every real
+    member but the query itself (``m_spos`` >= 0, packed position !=
+    ``self_pos``) by its fp64 dot with the query, from the stored values
+    (the walk's distance, acos of the dot with the SLACK margin and the
+    bf16 envelope, falls as the dot rises).  With every dot free to move
+    by ``DOT_ROUNDING * sum_j |q_j m_j|``, each buffered member must reach
+    the kk-th largest dot, and each member that stays above it must be
+    buffered.  This holds the buffer against an exact search of all the
+    members, not against the plain twin."""
+    kk = ids.numel()
+    real = m_spos >= 0
+    real[self_pos] = False
+    if bool((ids < 0).any()) or torch.unique(ids).numel() < kk \
+            or not bool(real[ids.long()].all()) or int(real.sum()) < kk:
+        return False
+    m = xm[real].double()
+    qd = q.double()
+    dot = m @ qd
+    delta = DOT_ROUNDING * (m.abs() @ qd.abs())
+    hi, lo = dot + delta, dot - delta
+    edge_hi = torch.topk(hi, kk).values[-1]
+    edge_lo = torch.topk(lo, kk).values[-1]
+    held = torch.zeros_like(real)
+    held[ids.long()] = True
+    held = held[real]
+    return bool((hi[held] >= edge_lo).all()
+                and (held | (lo <= edge_hi)).all())
+
+
+def exact_hits(q, self_pos, neighbours, xm, m_spos):
+    """Tie-aware hits of each row of ``neighbours`` ((sides, k) packed ids,
+    -1 empty) for query ``q`` against the exact k nearest members by fp64
+    distance of the stored rows (the rescore's measure: L2, or for cosine
+    the chord, whose angle the rescore takes) over every real member but
+    the query itself (``m_spos`` >= 0, packed position != ``self_pos``):
+    slot i of a side's sorted distances counts when it is within rtol 1e-6
+    of the exact i-th.  Returns one count per side."""
+    kn = neighbours.shape[1]
+    d = torch.linalg.norm(xm.double() - q.double(), dim=1)
+    d[(m_spos < 0) | torch.isnan(d)] = INF
+    d[self_pos] = INF
+    true_prof = torch.topk(d, kn, largest=False).values
+    got = torch.where(neighbours >= 0, d[neighbours.clamp(min=0).long()],
+                      torch.full_like(true_prof, INF))
+    got_prof = torch.sort(got, dim=1).values
+    return (got_prof <= true_prof * (1.0 + 1e-6)).sum(dim=1).tolist()
+
+
 def compare_walks(args, kw) -> dict:
     """:func:`walk` against :func:`walk_reference` on the same (args,
     kwargs) — ``knn_prune.walk_inputs`` of one batch — after the shared
@@ -165,13 +230,26 @@ def compare_walks(args, kw) -> dict:
       walks part has its bound within 1e-5 relative of the twin's tau
       (each such chunk is printed with its gap);
     - final neighbour ids are equal, except in rows whose fp64 distance
-      profiles (the ids' true distances, sorted) agree to rtol 1e-6: ties;
+      profiles (the ids' true distances, sorted) agree to rtol 1e-6 (ties),
+      and, for bf16 cosine alone, in rows where each side's candidate
+      buffer is the exact walk's top kk up to the products' rounding
+      (:func:`walk_tie`, against an fp64 search of all the members; each
+      such row is printed with both sides' hits among the exact fp64
+      neighbours, :func:`exact_hits`).  bf16 cosine ranks by the angle of
+      the dot in the walk and by the chord of the stored rows in the
+      rescore, which are not of unit norm, so the two orders disagree by
+      more than kk - k places (ROADMAP §C6): one ulp of a dot at the
+      buffer's edge decides which of two right buffers a side keeps, and
+      so a neighbour;
     - distances agree to rtol 1e-6 where the ids are equal.
 
-    Returns {"max_abs_err", "tie_rows", "chunks_differ", "examined"}."""
-    xq, xm = args[0], args[9]
+    Returns {"max_abs_err", "tie_rows", "edge_rows", "edge_hits" (kernel,
+    twin), "chunks_differ", "examined"}."""
+    xq, q_pos, xm, m_spos = args[0], args[2], args[9], args[11]
     sorted_min = args[7]
     metric, kn, group = kw["metric"], kw["k_neighbors"], kw["group"]
+    edge_ok = (xq.dtype == torch.bfloat16
+               and metric == D.DistanceMetric.COSINE)
     bi_k, ex_k, st_k = walk(*args, **kw)
     trace = []
     bi_r, ex_r, st_r = walk_reference(*args, **kw, tau_trace=trace)
@@ -192,19 +270,41 @@ def compare_walks(args, kw) -> dict:
     n_k, d_k = KP.rescore(xq, bi_k, xm, metric, kn)
     n_r, d_r = KP.rescore(xq, bi_r, xm, metric, kn)
     rows = torch.nonzero((n_k != n_r).any(dim=1))[:, 0]
+    hits = [0, 0]
+    edge_rows = 0
     for r in rows.tolist():
         q = xq[r].double()
         prof = [torch.sort(torch.linalg.norm(
             xm[ids.long()].double() - q, dim=1)).values
             for ids in (n_k[r], n_r[r])]
-        if not torch.allclose(prof[0], prof[1], rtol=1e-6, atol=0):
+        if torch.allclose(prof[0], prof[1], rtol=1e-6, atol=0):
+            continue
+        if not edge_ok:
             raise AssertionError("row %d: neighbours differ off fp64 ties"
                                  % r)
+        for side, ids in (("kernel", bi_k[r]), ("plain twin", bi_r[r])):
+            if not walk_tie(xq[r], int(q_pos[r]), ids, xm, m_spos):
+                raise AssertionError(
+                    "row %d: neighbours differ off fp64 ties, and the %s's "
+                    "candidate buffer is not the exact walk's top kk up to "
+                    "the products' rounding" % (r, side))
+        edge_rows += 1
+        h = exact_hits(xq[r], int(q_pos[r]),
+                       torch.stack([n_k[r], n_r[r]]), xm, m_spos)
+        hits = [hits[0] + h[0], hits[1] + h[1]]
+        print("row %d: both candidate buffers are the exact walk's top kk "
+              "up to a tie within the products' rounding at their edge; "
+              "fp64 neighbour profiles end %s (kernel) vs %s (plain); %d "
+              "vs %d of %d exact fp64 neighbours"
+              % (r, ["%.7g" % v for v in prof[0][-2:].tolist()],
+                 ["%.7g" % v for v in prof[1][-2:].tolist()], h[0], h[1],
+                 kn), flush=True)
     same = (n_k == n_r) & torch.isfinite(d_r)
     torch.testing.assert_close(d_k[same], d_r[same], rtol=1e-6, atol=0)
     err = float((d_k[same] - d_r[same]).abs().max()) if bool(same.any()) \
         else 0.0
     return {"max_abs_err": err, "tie_rows": int(rows.numel()),
+            "edge_rows": edge_rows, "edge_hits": tuple(hits),
             "chunks_differ": int((ex_k != ex_r).sum()),
             "examined": int(ex_r.sum())}
 

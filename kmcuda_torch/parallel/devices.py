@@ -51,3 +51,18 @@ def device_for(samples, device_mask: int, logger=None) -> torch.device:
             "no CUDA device exists; pass a torch.Tensor to run on its own "
             "device")
     return selected[0]
+
+
+def memory_report(device: torch.device) -> list:
+    """The device's memory line, as ``kmcuda_tpu.parallel.mesh.Topology.
+    memory_report`` prints one per device at verbosity 2: torch's caching
+    allocator on a CUDA device, ``memory stats n/a`` elsewhere."""
+    if device.type != "cuda":
+        return ["%s: memory stats n/a" % (device,)]
+    mb = 2**20
+    return ["%s: %.0f MB in use / %.0f MB limit (peak %.0f MB, %.0f MB "
+            "reserved)" % (device, torch.cuda.memory_allocated(device) / mb,
+                           torch.cuda.get_device_properties(
+                               device).total_memory / mb,
+                           torch.cuda.max_memory_allocated(device) / mb,
+                           torch.cuda.memory_reserved(device) / mb)]

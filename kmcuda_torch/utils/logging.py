@@ -1,8 +1,9 @@
 """Verbosity-gated logging, stdout-compatible with the reference.
 
 The same lines as ``kmcuda_tpu.utils.logging``: INFO at verbosity > 0,
-DEBUG at > 1, plain lines on stdout; warnings always, on stderr.  The
-``iteration %d: %d reassignments`` line is API: test suites parse it.
+DEBUG at > 1, TRACE at > 2, plain lines on stdout; warnings always, on
+stderr.  The ``iteration %d: %d reassignments`` line is API: test suites
+parse it.
 """
 
 import sys
@@ -18,6 +19,10 @@ class Logger:
 
     def debug(self, msg: str) -> None:
         if self.verbosity > 1:
+            print(msg, flush=True)
+
+    def trace(self, msg: str) -> None:
+        if self.verbosity > 2:
             print(msg, flush=True)
 
     def iteration(self, n: int, reassignments: int) -> None:

@@ -71,12 +71,14 @@ def fused_bound(n: int, f: int, k: int, dtype_name: str) -> dict:
 
 def walk_bound(examined: int, member_rows: int, queries: int, f: int,
                kk: int, chunks: int, dtype_name: str) -> dict:
-    """B3 (``kmt_knn_walk``) on one batch: an fp32-grade product of 2 f
-    operations per examined (query, member) pair, as this run's data needs
-    them; one read of the queries and of the distinct member rows the walks
-    visited, one write of the (queries, kk) candidates and the per-chunk
-    counts."""
+    """B3 (``kmt_knn_walk``) on one batch: a product of 2 f operations per
+    examined (query, member) pair, as this run's data needs them, at the
+    storage dtype's rate (bf16 on the tensor cores, as ``_assign_parts``
+    counts it; fp32-grade for fp32); one read of the queries and of the
+    distinct member rows the walks visited, one write of the (queries, kk)
+    candidates and the per-chunk counts."""
     size = _size(dtype_name)
     nbytes = ((queries + member_rows) * f * size + 4 * queries * kk
               + 12 * chunks)
-    return bound(nbytes, {"fp32 product": 2.0 * f * examined})
+    kind = "bf16" if dtype_name == "bfloat16" else "fp32 product"
+    return bound(nbytes, {kind: 2.0 * f * examined})

@@ -171,14 +171,35 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                    args["centroids"], n_clusters=8, metric=m)
 
 
-def test_segment_parts_bounds_scratch():
-    for n, k, f in ((100_000, 1024, 256), (1_000_000, 1024, 256),
-                    (8_000_000, 1024, 256), (1000, 2, 1),
-                    (50_000, 65_536, 65_536)):
-        parts = K.segment_parts(n, k, f)
-        assert 1 <= parts <= K.SEGMENT_MAX_PARTS
-        assert parts == 1 or parts * k * f * 4 <= K.SEGMENT_SCRATCH_BYTES
-        assert parts <= -(-n // K.SEGMENT_MIN_ROWS)
+@pytest.mark.parametrize("n,f,k,itemsize", [
+    (100_000, 256, 1024, 4), (1_000_000, 256, 1024, 2),
+    (8_000_000, 256, 1024, 2), (100_003, 250, 1000, 2), (3, 64, 2, 4),
+    (1000, 1, 5000, 4), (50_000, 65_536, 65_536, 4),
+    (2**31 - 1, 256, 1024, 2), (2**31 - 1, 3, 2**20, 4)])
+def test_segment_plan_covers_rows_and_bounds_scratch(n, f, k, itemsize):
+    """The segment sum's cut: placement blocks and reduction chunks cover
+    [0, n) exactly, the blocks hold at least k rows, so the (k, blocks)
+    table stays within n + k entries and all integer scratch within
+    3 n + 2 k + 1; the partials within 2 * SEGMENT_MAX_CHUNKS * f floats;
+    the block shape divides 256 threads and the grid fits CUDA's limits;
+    and the cut depends on the shape alone."""
+    p = K.segment_plan(n, f, k, itemsize)
+    assert p == K.segment_plan(n, f, k, itemsize)
+    blocks, chunks = -(-n // p.rows), -(-n // p.chunk)
+    assert p.rows >= k and p.rows % 256 == 0
+    assert (blocks - 1) * p.rows < n <= blocks * p.rows
+    assert (chunks - 1) * p.chunk < n <= chunks * p.chunk
+    assert p.chunk >= K.SEGMENT_MIN_CHUNK
+    assert chunks <= K.SEGMENT_MAX_CHUNKS
+    assert blocks * k <= n + k
+    assert p.int_scratch == blocks * k + k + 1 + 2 * n
+    assert p.int_scratch <= 3 * n + 2 * k + 1
+    assert p.float_scratch == 2 * chunks * f
+    assert p.float_scratch <= 2 * K.SEGMENT_MAX_CHUNKS * f
+    assert K.SEGMENT_THREADS % p.tx == 0 and p.tx >= 32
+    slab = p.tx * (16 // itemsize)
+    assert -(-f // slab) < 2**16 and chunks < 2**31
+    assert blocks < 2**31 and k < 2**31
 
 
 def test_near_ties_sees_score_and_rescore_ties():

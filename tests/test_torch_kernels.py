@@ -22,6 +22,7 @@ chip_smoke.py.
 import pytest
 import torch
 
+from kmcuda_torch.ops import _build
 from kmcuda_torch.ops import assign_kernels as K
 from kmcuda_torch.ops import distance as D
 
@@ -147,3 +148,80 @@ def test_assign_only_rows_are_independent(cuda, dtype):
                                      **kw)
     assert torch.equal(a2, a[rows]) and torch.equal(b2, b[rows])
     assert int(ch2) == int((a[rows] != prev[rows]).sum())
+
+
+def _segment_sum(x, aid, k):
+    """``kmt_segment_sum`` alone (B1's second half), synchronized."""
+    lib = _build.library()
+    out = K.launch_segment_sum(lib, x, aid, k,
+                               torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    return out
+
+
+# (n, f, k, dtype, ids): a skewed assignment (90% of the rows in one
+# cluster, which spreads over many reduction chunks), k > n with empty
+# clusters, every row invalid (id k), odd f in bf16 (rows not 16-byte
+# aligned: the scalar loads), and a k past the shared-memory counters
+SEGMENT_CASES = [
+    (100_000, 256, 1024, torch.float32, "skewed"),
+    (30_011, 251, 700, torch.bfloat16, "skewed"),
+    (500, 64, 3000, torch.float32, "uniform"),
+    (4099, 32, 50, torch.float32, "invalid"),
+    (20_011, 251, 1000, torch.bfloat16, "uniform"),
+    (40_000, 8, 20_000, torch.float32, "uniform"),
+]
+
+
+@pytest.mark.parametrize("n,f,k,dtype,ids", SEGMENT_CASES)
+def test_segment_sum_matches_plain(cuda, n, f, k, dtype, ids):
+    """B1' against ``segment_sum_reference``: counts equal; sums within
+    rtol 1e-5 and atol 1e-5 * mean |x| of the same sums in fp64 (the twin's
+    ``index_add_`` adds in the order of its atomics: on a 90,000-row
+    cluster its own fp32 rounding passes 1e-5 of fp64); an empty cluster a
+    zero row; two launches bitwise equal."""
+    g = torch.Generator(device="cpu").manual_seed(n)
+    x = torch.rand(n, f, generator=g)
+    if ids == "skewed":
+        aid = torch.where(torch.rand(n, generator=g) < 0.9,
+                          torch.tensor(k // 3),
+                          torch.randint(0, k + 1, (n,), generator=g))
+    elif ids == "invalid":
+        aid = torch.full((n,), k)
+    else:
+        aid = torch.randint(0, k + 1, (n,), generator=g)
+    x, aid = x.to(cuda, dtype), aid.to(cuda, torch.int32)
+    sums, counts = _segment_sum(x, aid, k)
+    sums_r, counts_r = K.segment_sum_reference(x, aid, k)
+    assert torch.equal(counts, counts_r)
+    keep = aid < k
+    sums64 = torch.zeros((k, f), dtype=torch.float64, device=cuda)
+    sums64.index_add_(0, aid[keep].long(), x[keep].double())
+    atol = 1e-5 * float(x.float().abs().mean())
+    torch.testing.assert_close(sums.double(), sums64, rtol=1e-5, atol=atol)
+    assert bool((sums[counts == 0] == 0).all())
+    sums2, counts2 = _segment_sum(x, aid, k)
+    assert torch.equal(sums, sums2) and torch.equal(counts, counts2)
+
+
+
+def test_segment_sum_refuses_short_scratch(cuda):
+    """``kmt_segment_sum`` counts the scratch its cut needs itself and
+    refuses shorter scratch (cudaErrorInvalidValue) before it launches."""
+    n, f, k = 5000, 64, 100
+    x = torch.rand(n, f, device=cuda)
+    aid = torch.randint(0, k, (n,), device=cuda, dtype=torch.int32)
+    plan = K.segment_plan(n, f, k, 4)
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    sums = torch.empty((k, f), device=cuda)
+    counts = torch.empty((k,), dtype=torch.int32, device=cuda)
+    for ni, nf in ((plan.int_scratch - 1, plan.float_scratch),
+                   (plan.int_scratch, plan.float_scratch - 1)):
+        iscratch = torch.empty((ni,), dtype=torch.int32, device=cuda)
+        fscratch = torch.empty((nf,), device=cuda)
+        code = lib.kmt_segment_sum(
+            x.data_ptr(), aid.data_ptr(), iscratch.data_ptr(),
+            fscratch.data_ptr(), sums.data_ptr(), counts.data_ptr(), n, f, k,
+            plan.rows, plan.chunk, plan.tx, ni, nf, 0, stream)
+        assert code == 1   # cudaErrorInvalidValue

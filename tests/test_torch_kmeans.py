@@ -178,6 +178,34 @@ class TestValidation:
 GOLDEN_RANDOM = 8
 
 
+def test_verbosity2_plan_and_memory(samples, capsys):
+    """The counterpart of tests/test_kmeans.py's verbosity test on a CPU
+    tensor: the split plan and the memory line at verbosity 2, the
+    allocation map at verbosity 3; verbosity 1 prints none of them."""
+    kmeans_cuda(torch.from_numpy(samples), 50, init="random", seed=5,
+                tolerance=0.01, yinyang_t=0, verbosity=3, max_iterations=2)
+    out = capsys.readouterr().out.splitlines()
+    plan = [l for l in out if l.startswith("plan: ")]
+    assert len(plan) == 1
+    assert plan[0].startswith("plan: cpu rows [0, 13000) ")
+    assert "cpu: memory stats n/a" in out
+    allocs = [l for l in out if l.startswith("alloc ")]
+    assert [a.split()[1] for a in allocs] == ["x", "x_sq", "valid",
+                                              "assign0"]
+    assert "(13000, 2)" in allocs[0] and "float32" in allocs[0]
+    knn_cuda(3, torch.from_numpy(samples[:2000]), torch.zeros(1, 2),
+             torch.zeros(2000, dtype=torch.int32), verbosity=2)
+    out = capsys.readouterr().out.splitlines()
+    assert "cpu: memory stats n/a" in out
+    assert any(l.startswith("plan: ") for l in out)
+    assert not any(l.startswith("alloc ") for l in out)
+    kmeans_cuda(torch.from_numpy(samples), 50, init="random", seed=5,
+                tolerance=0.01, yinyang_t=0, verbosity=1, max_iterations=2)
+    out = capsys.readouterr().out.splitlines()
+    assert out and not any(l.startswith(("plan: ", "alloc ", "cpu: "))
+                           for l in out)
+
+
 def test_random_init_golden(samples, capsys):
     c, a = kmeans_cuda(torch.from_numpy(samples), 50, init="random", seed=3,
                        tolerance=0.05, yinyang_t=0, verbosity=1)

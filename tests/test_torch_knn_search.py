@@ -225,3 +225,54 @@ def test_walk_reference_matches_pallas_interpret():
     got = bi.numpy()[valid]
     want = np.asarray(wbi)[:, :kk][valid]
     _fp64_ties(xmn, xmn[valid].astype(np.float64), got, want, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_walk_tie_accepts_only_edge_differences(dtype):
+    """``knn_kernels.walk_tie``: a cosine candidate buffer is the exact
+    walk's top kk when it differs from it only in a member whose dot
+    equals the kk-th's to within the products' rounding; one that lacks a
+    member far inside the top kk, holds one far outside it, the query
+    itself, a padding row, a duplicate or an empty slot is not."""
+    rng = np.random.RandomState(4)
+    q = rng.randn(16)
+    q /= np.linalg.norm(q)
+    u = rng.randn(16)
+    u -= (u @ q) * q
+    u /= np.linalg.norm(u)
+    # member 0 is the query, 1 a padding row at 0.05; then members at
+    # angles 0.1, 0.2, 0.3, 0.5 from q and one more at 0.5 (a tie with the
+    # fifth), and one at 0.9
+    angles = [0.0, 0.05, 0.1, 0.2, 0.3, 0.5, 0.5 + 1e-9, 0.9]
+    xm = torch.tensor(np.array([np.cos(a) * q + np.sin(a) * u
+                                for a in angles]), dtype=dtype)
+    m_spos = torch.tensor([0, -1, 2, 3, 4, 5, 6, 7], dtype=torch.int32)
+    qt = xm[0].float()
+
+    def tie(*v):
+        return KK.walk_tie(qt, 0, torch.tensor(v, dtype=torch.int32), xm,
+                           m_spos)
+
+    assert tie(2, 3, 4, 5) and tie(2, 3, 4, 6) and tie(5, 3, 4, 2)
+    assert not tie(2, 3, 5, 6)      # lacks the member at 0.3
+    assert not tie(2, 3, 4, 7)      # holds the member at 0.9
+    assert not tie(0, 2, 3, 4)      # the query itself
+    assert not tie(1, 2, 3, 4)      # padding
+    assert not tie(2, 3, 4, 4)
+    assert not tie(2, 3, 4, -1)
+
+
+def test_exact_hits_counts_true_neighbours_up_to_ties():
+    """``knn_kernels.exact_hits``: a returned slot counts when its fp64
+    distance reaches the exact profile's slot; the query itself, padding
+    (m_spos < 0) and NaN members are never exact neighbours; either of two
+    tied members counts."""
+    q = torch.zeros(2)
+    # member 0 is the query, 1 padding, 2 NaN; 3..6 at 1, 2, 2, 3
+    xm = torch.tensor([[0.0, 0.0], [0.5, 0.0], [float("nan"), 0.0],
+                       [1.0, 0.0], [0.0, 2.0], [-2.0, 0.0], [3.0, 0.0]])
+    m_spos = torch.tensor([0, -1, 2, 3, 4, 5, 6], dtype=torch.int32)
+    sides = torch.tensor([[3, 4], [5, 3], [3, 6], [6, -1], [0, 1]],
+                         dtype=torch.int32)
+    assert KK.exact_hits(q, 0, sides, xm, m_spos) == [2, 2, 1, 0, 0]

@@ -75,3 +75,14 @@ def test_walk_bound_counts_examined_pairs_and_visited_rows():
     assert few["by"] == "bytes"
     assert few["bytes"] == (32 * 256 + 400_000) * F * 4 + 4 * 32 * 256 * 16 \
         + 12 * 32
+
+
+def test_walk_bound_counts_bf16_products_at_the_bf16_rate():
+    """bf16 storage: the walk's products go at 989 TFLOP/s, as B2's bf16
+    product does; the bytes count two per feature."""
+    b = R.walk_bound(10**9, 400_000, 32 * 256, F, 16, 32, "bfloat16")
+    assert b["ops"] == {"bf16": 2.0 * F * 10**9}
+    assert b["by"] == "operations"
+    assert b["ms"] == pytest.approx(1e3 * 2.0 * F * 1e9 / 989e12, rel=1e-12)
+    assert b["bytes"] == (32 * 256 + 400_000) * F * 2 \
+        + 4 * 32 * 256 * 16 + 12 * 32

@@ -16,6 +16,10 @@ assignments, off near-ties (``assign_kernels.near_ties``: consecutive
 top-3 scores within 1e-5 * max(1, |s1|), or the rescore's two exact
 squared distances within 1e-5 * max(1, d2)), with best scores to rtol
 1e-5 (atol 1e-6 of the mean |x|^2 for scores near 0).
+
+``kmt_knn_walk`` takes its fp32 dot products the same way; the plain walk
+with those emulated products must give, after the exact rescore, the
+plain walk's neighbours on the 13K blob fixture, up to fp64 ties.
 """
 
 import numpy as np
@@ -28,9 +32,15 @@ import jax.numpy as jnp
 
 from kmcuda_tpu.ops import assign as JA
 from kmcuda_tpu.ops import distance as JD
+from kmcuda_torch import kmeans_cuda
+from kmcuda_torch.models import knn as TK
+from kmcuda_torch.models.problem import prepare
 from kmcuda_torch.ops import assign_kernels as K
 from kmcuda_torch.ops import distance as D
+from kmcuda_torch.ops import knn_kernels as KK
+from kmcuda_torch.ops import knn_prune as KP
 from kmcuda_torch.ops.assign import pad_clusters, rescore_table
+from kmcuda_torch.utils.logging import Logger
 
 torch.set_num_threads(2)
 
@@ -223,3 +233,35 @@ def test_emulated_3xtf32_matches_plain_on_blobs():
 def test_emulated_3xtf32_matches_plain_ragged(metric_name):
     x, valid, c = ragged_like(metric_name)
     _check(x, valid, c, metric_name, x.shape[0])
+
+
+def test_emulated_3xtf32_walk_matches_plain_on_blobs(monkeypatch):
+    """The walk (``knn_kernels.walk_reference``) with its fp32 products
+    taken as the kernel takes them (:func:`emulated_3xtf32_products`), on
+    the 13K blob fixture, 10-NN: after ``knn_prune.rescore`` its neighbours
+    equal the plain walk's, except in rows whose fp64 distance profiles
+    agree to rtol 1e-6 (ties)."""
+    x = torch.from_numpy(blob_fixture())
+    rng = np.random.RandomState(0)
+    c, a = kmeans_cuda(x, 50, init=x[rng.choice(13000, 50, replace=False)],
+                       tolerance=0.01, yinyang_t=0)
+    m = D.DistanceMetric.L2
+    plan = TK.plan_pruned(prepare(x, 50, m, x.device, Logger(0)), c, a)
+    args, kw = TK.batch_walk_inputs(plan, 0, plan.m_total // plan.q_chunk,
+                                    k_neighbors=10, n_clusters=50, metric=m)
+    bi_p, ex_p, _st = KK.walk_reference(*args, **kw)
+    with monkeypatch.context() as mp:
+        mp.setattr(D, "matmul_f32",
+                   lambda q, mt: emulated_3xtf32_products(q, mt.T))
+        bi_e, ex_e, _st = KK.walk_reference(*args, **kw)
+    xq, xm = args[0], args[9]
+    n_p, d_p = KP.rescore(xq, bi_p, xm, m, 10)
+    n_e, d_e = KP.rescore(xq, bi_e, xm, m, 10)
+    assert int(ex_p.sum()) > 0
+    for r in torch.nonzero((n_e != n_p).any(dim=1))[:, 0].tolist():
+        q = xq[r].double()
+        prof = [torch.sort(torch.linalg.norm(xm[i.long()].double() - q,
+                                             dim=1)).values
+                for i in (n_e[r], n_p[r])]
+        torch.testing.assert_close(prof[0], prof[1], rtol=1e-6, atol=0)
+
