@@ -24,10 +24,19 @@ headline data (seed 1, tolerance 0.002, at most 60 iterations) against
 the same call with ``yinyang_t=0``: identical assignments, centroids and
 iteration lines, and B2 launched by the Yinyang loop (both walls are
 timed from one imported k-means++ start); the same at
-1,000,000 x 256 bf16 (random init, tolerance 0, 30 iterations); AFK-MC2
-at the JAX bench's spherical configuration (1,000,000 x 256 unit rows,
-cosine, k=1024, m=100); and Yinyang on a CUDA and a CPU tensor of the 13K
-blob fixture from one start.
+1,000,000 x 256 bf16 (random init, tolerance 0, 60 iterations, with the
+count of each Yinyang iteration variant and the rows the moved-row patch
+walked); the JAX bench's 15-iteration pair, which the budget gate hands to
+Lloyd (gate line, no grouping, bitwise, walls); Yinyang against Lloyd,
+bitwise, under forced schedules (revoke always, which must revoke; dense
+fraction 0.01 and 0.99; bf16 lower bounds) on the headline data and the
+13K blob fixture;
+the JAX bench's deep-tail restart (2,000,000 x 256 fp32 merged blobs,
+45 iterations from 15 of Lloyd: walls, candidates per iteration, the
+controller's decisions); AFK-MC2 at the JAX bench's spherical
+configuration (1,000,000 x 256 unit rows, cosine, k=1024, m=100); and
+Yinyang on a CUDA and a CPU tensor of the 13K blob fixture from one
+start.
 
 kNN: the JAX bench's configuration (1,000,000 x 256 fp32 blobs, k=1024,
 16 neighbours) through the public ``knn_cuda``, clustered from the blob
@@ -76,7 +85,7 @@ import time
 import numpy as np
 import torch
 
-from kmcuda_torch import kmeans_cuda, knn_cuda
+from kmcuda_torch import config, kmeans_cuda, knn_cuda
 from kmcuda_torch.models import initialization as I
 from kmcuda_torch.models import knn as TK
 from kmcuda_torch.models import yinyang as Y
@@ -85,6 +94,7 @@ from kmcuda_torch.ops import _build
 from kmcuda_torch.ops import assign_kernels as K
 from kmcuda_torch.ops import distance as D
 from kmcuda_torch.ops import knn_kernels as KK
+from kmcuda_torch.ops import yinyang as YY
 from kmcuda_torch.ops.assign import pad_clusters
 from kmcuda_torch.utils.logging import Logger
 import roofline as R
@@ -96,6 +106,7 @@ KNN_BENCH = dict(n=1_000_000, f=256, k=1024, kn=16)
 KNN_RAGGED = dict(n=100_003, f=250, k=1000, kn=10)
 KNN_WIDE = dict(n=16_384, f=2_560, k=16, kn=200)
 SPHERICAL = dict(n=1_000_000, f=256, k=1024, m=100)
+DEEP_TAIL = dict(n=2_000_000, f=256, k=1024)
 
 
 def card_line() -> str:
@@ -505,8 +516,36 @@ def yinyang_vs_lloyd(label, x, k, metric, **kw):
     return yy, yy_log, yy_n, ll_n
 
 
+def yinyang_variants(log: str) -> dict:
+    """Iterations of each variant and the moved rows the patch walked, from
+    the loop's verbosity-2 lines (``yinyang: <variant> iteration, N moved
+    rows patched``)."""
+    out = {v: 0 for v in YY.VARIANTS}
+    out["patched rows"] = 0
+    for l in log.splitlines():
+        if l.startswith("yinyang: ") and " moved rows patched" in l:
+            variant, rest = l[len("yinyang: "):].split(" iteration, ")
+            out[variant] += 1
+            out["patched rows"] += int(rest.split()[0])
+    return out
+
+
+def controller_events(log: str) -> str:
+    """The controller's decisions in a verbosity-2 log: its windows, and
+    each revocation and re-probe of the sparse branch."""
+    lines = log.splitlines()
+    windows = [l.split()[3] for l in lines
+               if l.startswith("yinyang: segment of ")]
+    revoked = sum(l.startswith("yinyang: sparse branch revoked")
+                  for l in lines)
+    reprobed = sum(l.startswith("yinyang: re-probing") for l in lines)
+    return ("windows %s; sparse branch revoked %d times, re-probed %d "
+            "times" % ("/".join(windows), revoked, reprobed))
+
+
 def yinyang_profile(log: str) -> str:
-    """The phase times, the Yinyang loop's ms per iteration and its
+    """The phase times, the Yinyang loop's ms per iteration, its
+    iteration variants and patched rows, its controller decisions and its
     per-iteration candidate/passed counts of a verbosity-2 Yinyang log."""
     lines = log.splitlines()
     phases = [l.split("yinyang: ")[1] for l in lines
@@ -518,9 +557,10 @@ def yinyang_profile(log: str) -> str:
               if l.startswith("yinyang: main loop ")]
     per_it = ("%.3f" % (1e3 * loop_s[0] / len(counts))
               if loop_s and counts else "-")
-    return ("%s; Yinyang loop %s ms per iteration; candidates/passed per "
-            "Yinyang iteration: %s" % ("; ".join(phases), per_it,
-                                       " ".join(counts)))
+    return ("%s; Yinyang loop %s ms per iteration; variants %s; %s; "
+            "candidates/passed per Yinyang iteration: %s"
+            % ("; ".join(phases), per_it, json.dumps(yinyang_variants(log)),
+               controller_events(log), " ".join(counts)))
 
 
 def timed_init(x, k, metric, method, seed, m=0):
@@ -546,7 +586,8 @@ def default_call_phase(tag, x):
     """``kmeans_cuda(x, 1024)`` with every default (k-means++, Yinyang)
     against ``yinyang_t=0`` on the headline data; then both walls from one
     imported k-means++ start, so the init's host-paced time stays out of
-    their ratio.  Returns the launch counts of the default calls."""
+    their ratio.  Returns the launch counts of the default calls and the
+    k-means++ start."""
     k = HEADLINE["k"]
     kw = dict(seed=1, tolerance=0.002, max_iterations=60)
     L2 = D.DistanceMetric.L2
@@ -570,23 +611,159 @@ def default_call_phase(tag, x):
              ", ".join("%.4f" % w for w in walls[0.1]), ll_s,
              ", ".join("%.4f" % w for w in walls[0]), 1e3 * ll_s / its,
              yy_s / ll_s, yinyang_profile(log)), flush=True)
-    return yy_n, ll_n
+    return yy_n, ll_n, c0
 
 
 def bf16_yinyang_phase(tag, xb):
-    """Yinyang == Lloyd at 1M x 256 bf16 (random init, tolerance 0, 30
-    iterations); returns the launch counts of both runs."""
+    """Yinyang == Lloyd at 1M x 256 bf16 (random init, tolerance 0, 60
+    iterations, past the budget gates); returns the launch counts of both
+    runs."""
     k = BF16_RUN["k"]
-    kw = dict(init="random", seed=1, tolerance=0.0, max_iterations=30)
+    kw = dict(init="random", seed=1, tolerance=0.0, max_iterations=60)
     _out, log, yy_n, ll_n = yinyang_vs_lloyd(
         "1000000x256 bf16 k=1024 Yinyang", xb, k, D.DistanceMetric.L2, **kw)
-    yy_s = wall_s(lambda: kmeans_cuda(xb, k, yinyang_t=0.1, **kw))
-    ll_s = wall_s(lambda: kmeans_cuda(xb, k, yinyang_t=0, **kw))
-    print("%s 1000000x256 bf16 k=1024, 30 iterations: Yinyang wall %.4f s, "
-          "Lloyd wall %.4f s (one run each), Yinyang / Lloyd %.3f; %s"
-          % (tag, yy_s, ll_s, yy_s / ll_s, yinyang_profile(log)),
-          flush=True)
+    walls = {0.1: [], 0: []}
+    for yt in (0, 0.1, 0.1, 0):
+        walls[yt].append(wall_s(lambda: kmeans_cuda(xb, k, yinyang_t=yt,
+                                                    **kw)))
+    yy_s, ll_s = min(walls[0.1]), min(walls[0])
+    print("%s 1000000x256 bf16 k=1024, %d iterations: Yinyang wall %.4f s "
+          "(min of %s), Lloyd wall %.4f s (min of %s), Yinyang / Lloyd "
+          "%.3f; %s"
+          % (tag, count_iterations(log), yy_s,
+             ", ".join("%.4f" % w for w in walls[0.1]), ll_s,
+             ", ".join("%.4f" % w for w in walls[0]), yy_s / ll_s,
+             yinyang_profile(log)), flush=True)
     return yy_n, ll_n
+
+
+def bench_pair_phase(tag, x):
+    """The JAX bench's 15-iteration pair (bench.py:136-177: the headline
+    data, random init, seed 1, tolerance 0.002): the pre-draft budget gate
+    hands the Yinyang call to Lloyd, so nothing is grouped and the results
+    are Lloyd's bitwise; walls min of 3, interleaved.  Returns the launch
+    counts of the Yinyang call."""
+    k = HEADLINE["k"]
+    kw = dict(init="random", seed=1, tolerance=0.002, max_iterations=15)
+    yy, yy_log, yy_n, marks = run_marked(lambda: kmeans_cuda(
+        x, k, yinyang_t=0.1, verbosity=2, **kw))
+    ll, ll_log, _ll_n, _ = run_marked(lambda: kmeans_cuda(
+        x, k, yinyang_t=0, verbosity=2, **kw))
+    gate = ("yinyang: budget 15 < YY_MIN_REMAINING=%d; running the Lloyd "
+            "driver outright (identical results)" % config.YY_MIN_REMAINING)
+    if gate not in yy_log.splitlines():
+        raise AssertionError("15-iteration pair: no budget gate line")
+    if marks or "group capacity" in yy_log:
+        raise AssertionError("15-iteration pair: the centroids were grouped")
+    if iteration_lines(yy_log) != iteration_lines(ll_log) or not (
+            torch.equal(yy[1], ll[1]) and nan_equal(yy[0], ll[0])):
+        raise AssertionError("15-iteration pair: Yinyang and Lloyd differ")
+    walls = {0.1: [], 0: []}
+    for _ in range(3):
+        for yt in (0, 0.1):
+            walls[yt].append(wall_s(lambda: kmeans_cuda(x, k, yinyang_t=yt,
+                                                        **kw)))
+    yy_s, ll_s = min(walls[0.1]), min(walls[0])
+    print("%s 15-iteration pair 100000x256 fp32 k=1024 (bench.py:136-177): "
+          "gate line '%s'; no grouping; Yinyang == Lloyd bitwise (%d "
+          "iterations); Yinyang wall %.4f s (min of 3: %s), Lloyd wall %.4f "
+          "s (min of 3: %s), Yinyang / Lloyd %.3f; launches %s"
+          % (tag, gate, count_iterations(yy_log), yy_s,
+             ", ".join("%.4f" % w for w in walls[0.1]), ll_s,
+             ", ".join("%.4f" % w for w in walls[0]), yy_s / ll_s, yy_n),
+          flush=True)
+    return yy_n
+
+
+def deep_tail_data():
+    """The deep-tail samples (bench.py:69-75, made on the card from seed 3)
+    and the centroids of 15 iterations from random init."""
+    n, f, k = DEEP_TAIL["n"], DEEP_TAIL["f"], DEEP_TAIL["k"]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    centers = torch.rand(k, f, generator=g, device="cuda") * 2.0
+    which = torch.randint(0, k, (n,), generator=g, device="cuda")
+    x = centers[which] + 0.5 * torch.randn(n, f, generator=g, device="cuda")
+    del centers, which
+    c_tail, _a = kmeans_cuda(x, k, init="random", seed=3, tolerance=0.0,
+                             yinyang_t=0.1, max_iterations=15)
+    return x, c_tail
+
+
+def deep_tail_phase(tag):
+    """The JAX bench's deep-tail restart (bench.py:50-133): 2M x 256 fp32
+    merged blobs (k=1024 centers U(0, 1) * 2, 0.5 * N(0, 1) noise, seed 3,
+    made on the card), 15 iterations from random, then Yinyang and Lloyd
+    restarted from those centroids with 45 iterations each: bitwise equal,
+    both walls (min of 2, interleaved) and their ratio, the candidate and
+    passed counts per iteration and the controller's decisions.  Returns
+    the launch counts of both restarts."""
+    k = DEEP_TAIL["k"]
+    x, c_tail = deep_tail_data()
+    kw = dict(init=c_tail, tolerance=0.0, max_iterations=45)
+    _out, log, yy_n, ll_n = yinyang_vs_lloyd(
+        "deep tail 2000000x256 fp32 k=1024 restart", x, k,
+        D.DistanceMetric.L2, **kw)
+    walls = {0.1: [], 0: []}
+    for yt in (0, 0.1, 0.1, 0):
+        walls[yt].append(wall_s(lambda: kmeans_cuda(x, k, yinyang_t=yt,
+                                                    **kw)))
+    yy_s, ll_s = min(walls[0.1]), min(walls[0])
+    print("%s deep tail 2000000x256 fp32 k=1024, restart of %d iterations: "
+          "Yinyang wall %.4f s (min of 2: %s), Lloyd wall %.4f s (min of 2: "
+          "%s), Yinyang / Lloyd %.3f; %s"
+          % (tag, count_iterations(log), yy_s,
+             ", ".join("%.4f" % w for w in walls[0.1]), ll_s,
+             ", ".join("%.4f" % w for w in walls[0]), yy_s / ll_s,
+             yinyang_profile(log)), flush=True)
+    del x
+    return yy_n, ll_n
+
+
+#: schedules forced through the Yinyang knobs; each must leave the
+#: trajectory Lloyd's
+FORCED_SCHEDULES = (
+    # margin 0 revokes every judged sparse-heavy window; the dense
+    # fraction makes the windows sparse-heavy on uniform data
+    ("revoke always", dict(YY_BAILOUT_MARGIN=0.0, YY_PROBE_ITERS=2,
+                           YY_DENSE_FRACTION=0.99)),
+    ("dense fraction 0.01", dict(YY_DENSE_FRACTION=0.01)),
+    ("dense fraction 0.99", dict(YY_DENSE_FRACTION=0.99)),
+    ("bf16 bounds", dict(YY_BOUNDS_F32_MAX_BYTES=0)),
+)
+
+
+def forced_schedules(label, x, k, **kw):
+    """Yinyang under each of FORCED_SCHEDULES against Lloyd, bitwise
+    (assignments, centroids, iteration lines)."""
+    ll, ll_log, _n, _m = run_marked(lambda: kmeans_cuda(
+        x, k, yinyang_t=0, verbosity=1, **kw))
+    for name, knobs in FORCED_SCHEDULES:
+        saved = {key: getattr(config, key) for key in knobs}
+        try:
+            for key, val in knobs.items():
+                setattr(config, key, val)
+            yy, yy_log, _n, marks = run_marked(lambda: kmeans_cuda(
+                x, k, yinyang_t=0.1, verbosity=2, **kw))
+        finally:
+            for key, val in saved.items():
+                setattr(config, key, val)
+        if len(marks) != 2:
+            raise AssertionError("%s, %s: the Yinyang loop was not entered"
+                                 % (label, name))
+        if iteration_lines(yy_log) != iteration_lines(ll_log) or not (
+                torch.equal(yy[1], ll[1]) and nan_equal(yy[0], ll[0])):
+            raise AssertionError("%s, %s: Yinyang and Lloyd differ"
+                                 % (label, name))
+        if name == "bf16 bounds" and "bf16 lower-bound storage" not in yy_log:
+            raise AssertionError("%s: bounds not stored in bf16" % label)
+        if name == "revoke always" and "sparse branch revoked" not in yy_log:
+            raise AssertionError("%s: the sparse branch was never revoked"
+                                 % label)
+        print("forced schedule '%s' on %s: Yinyang == Lloyd bitwise (%d "
+              "iterations); variants %s; %s"
+              % (name, label, count_iterations(yy_log),
+                 json.dumps(yinyang_variants(yy_log)),
+                 controller_events(yy_log)), flush=True)
 
 
 def spherical_phase(tag):
@@ -761,9 +938,19 @@ def main() -> int:
     check_small_input_agreement()
 
     check_row_independence()
-    paths = [("default call", *default_call_phase(tag, x)),
-             ("1M bf16 Yinyang", *bf16_yinyang_phase(tag, xb))]
+    *default_counts, c_pp = default_call_phase(tag, x)
+    paths = [("default call", *default_counts),
+             ("1M bf16 Yinyang", *bf16_yinyang_phase(tag, xb)),
+             ("15-iteration pair", bench_pair_phase(tag, x))]
     del xb
+    forced_schedules("the headline data from its k-means++ start", x, k,
+                     init=c_pp, tolerance=0.002, max_iterations=60)
+    xs = blob_fixture()
+    forced_schedules("the 13K fixture", torch.from_numpy(xs).cuda(), 50,
+                     init=torch.from_numpy(xs[np.random.RandomState(2).choice(
+                         13000, 50, replace=False)]).cuda(),
+                     tolerance=0.002, max_iterations=100)
+    paths.append(("deep tail", *deep_tail_phase(tag)))
     paths.append(("spherical AFK-MC2", spherical_phase(tag)))
     for label, *counts in paths:
         for launches in counts:

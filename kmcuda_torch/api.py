@@ -24,8 +24,9 @@ Devices are explicit, with no fallback:
 
 Ported: Lloyd and Yinyang with random, k-means++, AFK-MC2 or imported
 init, and the pruned exact kNN, for L2 and angular, fp32 and fp16/bf16
-input (bf16 storage, fp32 accumulation).  A device mask that selects
-several devices raises ``NotImplementedError`` (ROADMAP §A7).
+input (bf16 storage, fp32 accumulation).  ``KMTPU_PROFILE=<dir>`` traces
+the compute span of either call (``utils.profiling``).  A device mask that
+selects several devices raises ``NotImplementedError`` (ROADMAP §A7).
 """
 
 import time
@@ -44,6 +45,7 @@ from kmcuda_torch.parallel.devices import device_for, memory_report
 from kmcuda_torch.utils import validation as V
 from kmcuda_torch.utils.errors import KMTPUInvalidArguments
 from kmcuda_torch.utils.logging import Logger
+from kmcuda_torch.utils.profiling import profile_window
 
 
 def _parse_metric(metric):
@@ -125,26 +127,29 @@ def kmeans_torch(samples, clusters, tolerance=0.01, init="k-means++",
     if seed is None:
         seed = int(time.time())
 
-    centroids = I.init_centroids(problem, init_e, seed, afkmc2_m=afkmc2_m,
-                                 imported=imported)
-    assignments = L.new_assignments(problem)
-    if verbosity > 1:
-        # the memory line once the working set is resident, where the JAX
-        # package prints its per-device memory stats
-        for line in memory_report(dev):
-            logger.debug(line)
-    groups = int(yinyang_t * k)
-    if groups > 0 and tolerance < config.YINYANG_MIN_TOLERANCE:
-        centroids, assignments, _best, iters = Y.run(
-            problem, centroids, assignments, tolerance, groups,
-            max_iterations=max_iterations, seed=seed)
-    else:
-        centroids, assignments, _best, iters, _ = L.run(
-            problem, centroids, assignments, tolerance,
-            max_iterations=max_iterations)
-    logger.debug("finished in %d iterations" % iters)
-    ad = (L.mean_assigned_distance(problem, centroids, assignments)
-          if average_distance else None)
+    # the profiler window covers init, iterations and average distance, the
+    # span the reference brackets with cudaProfilerStart/Stop
+    with profile_window(logger, dev):
+        centroids = I.init_centroids(problem, init_e, seed,
+                                     afkmc2_m=afkmc2_m, imported=imported)
+        assignments = L.new_assignments(problem)
+        if verbosity > 1:
+            # the memory line once the working set is resident, where the
+            # JAX package prints its per-device memory stats
+            for line in memory_report(dev):
+                logger.debug(line)
+        groups = int(yinyang_t * k)
+        if groups > 0 and tolerance < config.YINYANG_MIN_TOLERANCE:
+            centroids, assignments, _best, iters = Y.run(
+                problem, centroids, assignments, tolerance, groups,
+                max_iterations=max_iterations, seed=seed)
+        else:
+            centroids, assignments, _best, iters, _ = L.run(
+                problem, centroids, assignments, tolerance,
+                max_iterations=max_iterations)
+        logger.debug("finished in %d iterations" % iters)
+        ad = (L.mean_assigned_distance(problem, centroids, assignments)
+              if average_distance else None)
 
     if isinstance(samples, torch.Tensor):
         out_c = centroids
@@ -197,8 +202,9 @@ def knn_torch(k, samples, centroids, assignments, metric="L2", device=0,
     if verbosity > 1:
         for line in memory_report(dev):
             logger.debug(line)
-    nbr, _dist = KNN.run(problem, cents, _knn_assignments(assignments, dev),
-                         k)
+    with profile_window(logger, dev):
+        nbr, _dist = KNN.run(problem, cents,
+                             _knn_assignments(assignments, dev), k)
     if isinstance(samples, torch.Tensor):
         return nbr
     return nbr.cpu().numpy().astype(np.uint32)

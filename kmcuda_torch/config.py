@@ -54,6 +54,78 @@ PAD_PENALTY = 1e30
 #: arm (full segment sum) instead of the compacted delta.
 DELTA_DENSE_FRACTION = 0.35
 
+# ---- Yinyang schedule (ops/yinyang.yy_run) ----------------------------------
+# Every knob below moves wall time or memory only: bounds never feed the
+# argmin, so the trajectory is Lloyd's under any setting.
+
+#: When more than this fraction of the samples are global-filter candidates,
+#: the iteration assigns every row (one Lloyd pass, ungathered) instead of
+#: tightening and gathering the candidates.  The lowest candidate fraction
+#: at which a sparse iteration of the loop was measured to cost one dense
+#: iteration on the H100, on the filter-friendly deep tail in fp32 and
+#: bf16 storage (``chip_profile.py crossover``, PERF.md §5), rounded down
+#: to a multiple of 0.05 for the spread between runs.
+YY_DENSE_FRACTION = 0.75
+
+#: Dense iterations keep the lower bounds (a "plain" pass: u refreshed, l
+#: kept) and refresh them on a backoff: while each refresh is followed by
+#: another dense iteration, the number of plain iterations before the next
+#: refresh doubles, up to this many; a sparse iteration resets it to 1.
+YY_REFRESH_BACKOFF_MAX = 64
+
+#: Sparse iterations refresh the passed rows' lower bounds when the extra
+#: candidates that stale bounds admitted since the last refresh (summed over
+#: the iterations) reach this multiple of the previous passed count: the
+#: group-panel product a refresh adds per passed row against the one
+#: assignment row each extra candidate costs per iteration (rent or buy).
+YY_SPARSE_REFRESH_SURCHARGE = 1.2
+
+#: The tighten (exact own-centroid distance of each candidate) is kept only
+#: while it prunes at least this fraction of the candidates; otherwise it is
+#: skipped for a period that doubles up to YY_REFRESH_BACKOFF_MAX, and every
+#: candidate goes to the assignment kernel.
+YY_TIGHTEN_MIN_PRUNE = 0.33
+
+#: Above this many bytes of (n, G) fp32 lower bounds they are stored in
+#: bfloat16, rounded down (ops/yinyang.lower_cast), which halves the largest
+#: Yinyang state at the cost of a looser filter.
+YY_BOUNDS_F32_MAX_BYTES = 1 << 31
+
+#: Filter triage (0 = normal; 1 = every valid row is a candidate; 2 = also
+#: skip the tighten's re-test); both refresh every bound they touch.  For
+#: debugging the filter's soundness only.
+YY_DEBUG_MODE = 0
+
+# ---- Yinyang wall-clock controller (models/yinyang.run) --------------------
+# The loop's dense/sparse choice is a work model; whether a gathered sparse
+# iteration beats a Lloyd pass is measured: the driver times windows of
+# iterations and revokes the loop's permission to go sparse when a
+# sparse-heavy window loses to the measured Lloyd floor.
+
+#: Master switch of the controller and the budget gates.
+YY_WALL_CONTROLLER = True
+
+#: Below this iteration budget (before the draft, or left after it) the run
+#: stays on Lloyd: grouping and the first full bound refresh cost several
+#: Lloyd iterations that a short run cannot earn back.
+YY_MIN_REMAINING = 32
+
+#: Iterations of a window on probation: the first judged window and every
+#: re-probe of the sparse branch.  Windows that pass grow 4x, up to
+#: YY_WINDOW_MAX_ITERS.
+YY_PROBE_ITERS = 8
+
+#: The longest window between two controller decisions.
+YY_WINDOW_MAX_ITERS = 256
+
+#: Revoke the sparse branch when a sparse-heavy window's seconds per
+#: iteration exceed the Lloyd floor by this factor; re-probe it after
+#: YY_REPROBE_ITERS dense iterations, the interval doubling at every
+#: re-probe up to YY_REPROBE_ITERS_MAX.
+YY_BAILOUT_MARGIN = 1.02
+YY_REPROBE_ITERS = 128
+YY_REPROBE_ITERS_MAX = 2048
+
 # ---- kNN layout (models/knn.plan_pruned) -----------------------------------
 
 #: Below 2 * LANE samples kNN runs the brute-force search.

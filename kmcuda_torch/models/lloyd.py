@@ -9,6 +9,8 @@ run the first iteration, then continue while the count exceeds
 keeps improving (``STAGNATION_PATIENCE``).  A host loop has no segments.
 """
 
+import time
+
 import torch
 
 from kmcuda_torch import config
@@ -72,13 +74,21 @@ class Driver:
                 "the tolerance; see STAGNATION_PATIENCE)" % self.last)
 
 
-def drive(driver, steps):
+def drive(driver, steps, walls=None):
     """Feed ``steps`` (an ``ops.assign.lloyd_run`` generator) to the
-    driver until it stops; returns the last ``LloydStep``."""
+    driver until it stops; returns the last ``LloydStep``.  The generator
+    stays open: a Yinyang run may continue its accumulation stream.
+    ``walls``, a list, gets each iteration's seconds on the host clock,
+    read after the count's sync."""
+    t = time.perf_counter()
     for step in steps:
-        if not driver.absorb(step.changed):
+        more = driver.absorb(step.changed)
+        if walls is not None:
+            now = time.perf_counter()
+            walls.append(now - t)
+            t = now
+        if not more:
             break
-    steps.close()
     return step
 
 
@@ -92,8 +102,10 @@ def run(problem, centroids, assignments, tolerance, max_iterations=None,
     """
     p = problem
     drv = Driver(p.logger, int(tolerance * p.n), max_iterations, iter_offset)
-    step = drive(drv, A.lloyd_run(p.x, p.valid, assignments, centroids,
-                                  n_clusters=p.k, metric=p.metric))
+    steps = A.lloyd_run(p.x, p.valid, assignments, centroids,
+                        n_clusters=p.k, metric=p.metric)
+    step = drive(drv, steps)
+    steps.close()
     drv.finish()
     return step.c_used, step.assign, step.best, drv.done, drv.last
 

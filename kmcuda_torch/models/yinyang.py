@@ -13,12 +13,12 @@ One :class:`models.lloyd.Driver` spans draft and loop, so a Yinyang run
 stops at the iteration a Lloyd run of the same trajectory stops at, with
 the same assignments, centroids and iteration lines.
 
-Not ported: the JAX package's wall-clock controller (probe segments,
-sparse-branch revocation, the ``YY_MIN_REMAINING`` budget gates), its
-adaptive refresh and tighten backoff, and bf16 lower-bound storage.  They
-change wall time and memory, never results; without the budget gate a
-short run enters the Yinyang loop where the JAX package hands it to
-Lloyd.
+The JAX package's wall-clock controller (``YY_WALL_CONTROLLER``) decides
+what runs, never what comes out: budget gates hand a run with fewer than
+``YY_MIN_REMAINING`` iterations (before the draft, or left after it) to
+Lloyd, and the loop runs in windows of iterations whose walls decide
+whether it may take its sparse branch (:func:`run`).  Above
+``YY_BOUNDS_F32_MAX_BYTES`` of fp32 lower bounds they are stored in bf16.
 """
 
 import time
@@ -117,11 +117,24 @@ def _group_centroids(centroids, groups: int, metric, gen) -> YY.GroupLayout:
 
 def run(problem, centroids, assignments, tolerance, groups: int,
         max_iterations=None, seed: int = 0):
-    """Full Yinyang: draft Lloyd -> centroid grouping -> Yinyang loop.
+    """Full Yinyang: draft Lloyd -> centroid grouping -> Yinyang loop,
+    under the wall-clock controller (``config.YY_WALL_CONTROLLER``).
+
+    The controller times windows of loop iterations on the host clock,
+    after the per-iteration sync the loop already pays.  The first
+    iteration (a full bound refresh) is a window of its own and is never
+    judged; then windows of ``YY_PROBE_ITERS`` grow 4x up to
+    ``YY_WINDOW_MAX_ITERS``.  A sparse-heavy window slower per iteration
+    than the Lloyd floor (from the draft, or from a forced-dense window
+    when the draft measured none) times ``YY_BAILOUT_MARGIN`` revokes the
+    sparse branch; it is re-probed after ``YY_REPROBE_ITERS`` dense
+    iterations, the interval doubling up to ``YY_REPROBE_ITERS_MAX``.
 
     Returns (centroids, assignments, best_scores_or_None, iterations);
     the centroids are the ones the assignments were computed against."""
     p = problem
+    budget = min(config.DEFAULT_MAX_ITERATIONS if max_iterations is None
+                 else int(max_iterations), config.DEFAULT_MAX_ITERATIONS)
     if groups * _group_cap(p.k, groups) >= 2 ** 24:
         # the JAX package's limit (its slot lookup is an fp32 matvec); both
         # packages run Lloyd past it
@@ -130,20 +143,49 @@ def run(problem, centroids, assignments, tolerance, groups: int,
             "range at %d clusters; running Lloyd instead"
             % (groups * _group_cap(p.k, groups), p.k))
         c, a, best, iters, _ = L.run(p, centroids, assignments, tolerance,
-                                     max_iterations=max_iterations)
+                                     max_iterations=budget)
         return c, a, best, iters
+    ctl = bool(config.YY_WALL_CONTROLLER)
+    if ctl and budget < config.YY_MIN_REMAINING:
+        # the pre-draft budget gate: the draft IS Lloyd, so this is the
+        # same trajectory without the draft/loop hand-over
+        p.logger.debug(
+            "yinyang: budget %d < YY_MIN_REMAINING=%d; running the Lloyd "
+            "driver outright (identical results)"
+            % (budget, config.YY_MIN_REMAINING))
+        c, a, _best, iters, _ = L.run(p, centroids, assignments, tolerance,
+                                      max_iterations=budget)
+        return c, a, None, iters
     p.logger.debug(
         "yinyang: %d groups; draft Lloyd until < %.0f%% reassignments"
         % (groups, config.YINYANG_DRAFT_REASSIGNMENTS * 100))
     t0 = time.perf_counter()
     drv = L.Driver(p.logger, int(config.YINYANG_DRAFT_REASSIGNMENTS * p.n),
-                   max_iterations)
-    step = L.drive(drv, A.lloyd_run(p.x, p.valid, assignments, centroids,
-                                    n_clusters=p.k, metric=p.metric))
+                   budget)
+    steps = A.lloyd_run(p.x, p.valid, assignments, centroids,
+                        n_clusters=p.k, metric=p.metric)
+    walls = []
+    step = L.drive(drv, steps, walls)
+    # the draft's seconds per iteration after its first (which may build
+    # the kernels): the controller's Lloyd floor
+    lloyd_spi = (sum(walls[1:]) / (len(walls) - 1) if len(walls) > 1
+                 else None)
     drv.tol = int(tolerance * p.n)
     if not drv.keep_going():
+        steps.close()
         drv.finish()
         return step.c_used, step.assign, step.best, drv.done
+    if ctl and drv.cap - drv.done < config.YY_MIN_REMAINING:
+        # the post-draft budget gate: finish on the draft's own Lloyd loop
+        p.logger.debug(
+            "yinyang: %d iterations left < YY_MIN_REMAINING=%d; "
+            "finishing on the Lloyd path (identical results)"
+            % (drv.cap - drv.done, config.YY_MIN_REMAINING))
+        step = L.drive(drv, steps)
+        steps.close()
+        drv.finish()
+        return step.c_used, step.assign, step.best, drv.done
+    steps.close()
     t1 = time.perf_counter()
     p.logger.debug("yinyang: draft phase %.3f s (%d iterations)"
                    % (t1 - t0, drv.done))
@@ -156,16 +198,79 @@ def run(problem, centroids, assignments, tolerance, groups: int,
                    % (layout.cap, 100.0 * (groups * layout.cap - p.k) / p.k))
     t2 = time.perf_counter()
     p.logger.debug("yinyang: grouping phase %.3f s" % (t2 - t1))
+    bounds_dtype = torch.float32
+    if p.n * groups * 4 > config.YY_BOUNDS_F32_MAX_BYTES:
+        bounds_dtype = torch.bfloat16
+        p.logger.debug("yinyang: bf16 lower-bound storage (%d MB)"
+                       % (p.n * groups * 2 // 2**20))
 
+    sched = YY.Schedule()
+    # no Lloyd floor from the draft (it ran one iteration): the first
+    # judged window runs dense and measures it before sparse may run
+    floor_probe = ctl and lloyd_spi is None
+    sched.sparse_ok = not floor_probe
+    window = 1 if ctl else None
+    judged = False
+    reprobe_after = config.YY_REPROBE_ITERS
+    since_revoke = 0
     loop = YY.yy_run(p.x, p.x_sq, p.valid, step.assign, step.c_used,
                      step.sums, step.counts, step.changed, layout,
-                     n_clusters=p.k, metric=p.metric)
-    for ys in loop:
-        more = drv.absorb(ys.changed)
-        p.logger.debug("yinyang: %d candidates, %d samples passed the "
-                       "global filter" % (ys.candidates, ys.passed))
-        if not more:
-            break
+                     n_clusters=p.k, metric=p.metric, sched=sched,
+                     bounds_dtype=bounds_dtype)
+    more = True
+    while more:
+        t_w = time.perf_counter()
+        its = sparse = 0
+        for ys in loop:
+            more = drv.absorb(ys.changed)
+            p.logger.debug("yinyang: %d candidates, %d samples passed the "
+                           "global filter" % (ys.candidates, ys.passed))
+            p.logger.debug("yinyang: %s iteration, %d moved rows patched"
+                           % (ys.variant, ys.patched))
+            its += 1
+            sparse += ys.variant.startswith("sparse")
+            if not more or its == window:
+                break
+        wall = time.perf_counter() - t_w
+        p.logger.debug("yinyang: segment of %d iterations in %.3f s"
+                       % (its, wall))
+        if not (more and ctl):
+            continue
+        spi = wall / its
+        frac_sparse = sparse / its
+        if not judged:
+            judged = True     # the first iteration's full refresh
+            window = config.YY_PROBE_ITERS
+            continue
+        if frac_sparse <= 0.25:
+            # a dense window measures what revoking the sparse branch
+            # costs: the freshest floor
+            lloyd_spi = spi
+        grow = min(window * 4, config.YY_WINDOW_MAX_ITERS)
+        if floor_probe:
+            floor_probe = False
+            sched.sparse_ok = True
+            window = config.YY_PROBE_ITERS
+        elif sched.sparse_ok:
+            if (frac_sparse >= 0.5 and lloyd_spi is not None
+                    and spi > lloyd_spi * config.YY_BAILOUT_MARGIN):
+                p.logger.debug(
+                    "yinyang: sparse branch revoked (%.3g s/it vs Lloyd "
+                    "%.3g)" % (spi, lloyd_spi))
+                sched.sparse_ok = False
+                since_revoke = 0
+            window = grow
+        else:
+            since_revoke += its
+            window = grow
+            if since_revoke >= reprobe_after:
+                p.logger.debug(
+                    "yinyang: re-probing the sparse branch after %d dense "
+                    "iterations" % since_revoke)
+                sched.sparse_ok = True
+                window = config.YY_PROBE_ITERS
+                reprobe_after = min(reprobe_after * 2,
+                                    config.YY_REPROBE_ITERS_MAX)
     loop.close()
     drv.finish()
     p.logger.debug("yinyang: main loop %.3f s (%d iterations total)"

@@ -14,30 +14,51 @@ keeps a knife-edge tie a candidate).
 Every assignment goes through the Lloyd kernels (``ops.assign_kernels``)
 against the full centroid panel in natural column order, and the running
 (sums, counts) continue the accumulation stream of
-``ops.assign.lloyd_run``, so the trajectory is bitwise Lloyd's:
+``ops.assign.lloyd_run``, so the trajectory is bitwise Lloyd's.  Two
+decisions are made apart each iteration:
 
-- the arm is ``compact.predict_dense`` of the previous count, as in Lloyd;
-- dense arm: B1 over all rows; its fixed-order segment sum replaces the
-  sums;
-- sparse arm: the candidates' ``u`` is tightened to the exact distance to
-  the own centroid, the survivors go through B2 gathered, the rest are
-  proven unmoved; the moved rows, in ascending order — the prefix
-  Lloyd's stable partition gives — go to ``compact.delta_compacted`` and
-  the delta is added.
+- the *sum arm* is ``compact.predict_dense`` of the previous count, as in
+  Lloyd: B1 over all rows, whose segment sum replaces the sums, or the
+  moved rows, in ascending order, into ``compact.delta_compacted``, whose
+  delta is added;
+- the *bound path*: dense on the first iteration, when the controller has
+  revoked the sparse branch (:class:`Schedule`), or when more than
+  ``YY_DENSE_FRACTION`` of the rows are candidates.  A dense path is
+  exactly Lloyd's iteration: B1, or B2 over all rows ungathered.  A
+  sparse path tightens the candidates' ``u`` to the exact distance to the
+  own centroid (unless the tighten is backed off) and runs B2 gathered on
+  the survivors; the rest are proven unmoved.  Where the sum arm is dense
+  as well, B1 assigns every row (its sums replace the running ones) and
+  the survivors' ids are read from it.  B2 assigns a row the same whether
+  it is launched over all rows or a gathered subset: each row's scores
+  are its own in-order fma chain and its top-2 merge and rescore are its
+  own lanes'.
 
-This rests on B2 assigning a row the same whether it is launched over all
-rows or a gathered subset: each row's scores are its own in-order fma
-chain and its top-2 merge and rescore are its own lanes'.
+The bounds of the rows a path assigned are then kept in one of four
+iteration variants, chosen as the JAX package chooses them:
 
-Rows the kernel assigned get fresh bounds: ``u`` from the exact
-subtract-square distance with an upward margin, ``l`` from one fp32
-product against the capacity-balanced (G, cap) group panel with the own
-slot excluded and a downward margin.  The JAX package's one-hot table
+- *dense refresh*: fresh (u, l) for every row, on a backoff period that
+  doubles up to ``YY_REFRESH_BACKOFF_MAX`` while each refresh is followed
+  by another dense iteration;
+- *dense plain*: u refreshed exactly for every row, l kept: one Lloyd pass
+  and an elementwise pass;
+- *sparse refresh*: fresh (u, l) for the passed rows, when the extra
+  candidates that stale bounds admitted reach ``YY_SPARSE_REFRESH_SURCHARGE``
+  times the previous passed count;
+- *sparse keep*: u refreshed exactly for the passed rows, l kept.
+
+An iteration that kept l gives every moved row fresh (u, l) (the moved-row
+patch): its stored l excludes its old centroid, now a competitor.  Fresh u
+is the exact subtract-square distance with an upward margin; fresh l one
+fp32 product against the capacity-balanced (G, cap) group panel with the
+own slot excluded and a downward margin.  The JAX package's one-hot table
 lookups (a TPU workaround for small-table gathers) are plain gathers here.
 """
 
+import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from kmcuda_torch import config
@@ -45,12 +66,15 @@ from kmcuda_torch.ops import assign_kernels as K
 from kmcuda_torch.ops import compact as C
 from kmcuda_torch.ops import distance as D
 
-#: the group-minima product runs over row chunks of at most this many
-#: (row, panel slot) elements, bounding its fp32 scratch to 256 MB
+#: every elementwise bound pass runs over row chunks of at most this many
+#: elements of its widest temporary, bounding its fp32 scratch to 256 MB
 BOUND_CHUNK_ELEMENTS = 1 << 26
 
 #: relative margin of every bound coordinate conversion (as the JAX loop)
 BOUND_MARGIN = 2.4e-7
+
+#: the iteration variants, as ``YinyangStep.variant`` names them
+VARIANTS = ("dense plain", "dense refresh", "sparse keep", "sparse refresh")
 
 
 class GroupLayout(NamedTuple):
@@ -63,10 +87,29 @@ class GroupLayout(NamedTuple):
     cap: int
 
 
+@dataclasses.dataclass
+class Schedule:
+    """The loop's schedule, carried across its iterations and across the
+    controller's windows: never reset at a window boundary.  The driver
+    grants or revokes ``sparse_ok`` between windows; the rest is the JAX
+    loop's backoff state (``limits[8:16]`` there)."""
+
+    sparse_ok: bool = True
+    refresh_in: int = 0      # dense iterations left before a refresh
+    period: int = 1          # the dense refresh period
+    tskip: int = 0           # sparse iterations left with the tighten off
+    tperiod: int = 1         # the tighten's skip period
+    cand_mark: int = 0       # candidates right after the last refresh
+    acc_extra: int = 0       # extra candidates summed since then
+    prev_passed: int = 0     # the previous iteration's passed count
+    ref_any: bool = False    # the previous iteration refreshed l
+
+
 class YinyangStep(NamedTuple):
     """One iteration: ``c_used`` are the centroids its assignment was
     computed against; ``u``, ``l``, ``ga``, ``acc`` the stored bounds (see
-    :func:`current_bounds`)."""
+    :func:`current_bounds`); ``variant`` one of :data:`VARIANTS`;
+    ``patched`` the moved rows the patch gave fresh bounds."""
 
     c_used: torch.Tensor
     assign: torch.Tensor
@@ -77,6 +120,8 @@ class YinyangStep(NamedTuple):
     l: torch.Tensor
     ga: torch.Tensor
     acc: torch.Tensor
+    variant: str
+    patched: int
 
 
 class _Tables(NamedTuple):
@@ -99,12 +144,44 @@ def exact_drift(c_new, c_old, metric):
     return torch.where(torch.isfinite(drift), drift, torch.zeros_like(drift))
 
 
-def current_bounds(u, l, ga, acc):
-    """The stored bounds in current coordinates: (u (n,), l (n, G))."""
+def lower_cast(v, dtype):
+    """Store lower bounds ``v`` (fp32) in ``dtype``.  bf16 rounds to
+    nearest, so shift down by one bf16 ulp first: a stored lower bound
+    never exceeds ``v`` (the JAX ``lower_cast``)."""
+    if dtype == torch.float32:
+        return v
+    return (v - v.abs() * 2.0 ** -8).to(dtype)
+
+
+def _u_now(u, ga, acc):
+    """The stored upper bounds in current coordinates, (n,) fp32."""
     c2 = acc[ga]
-    u_now = (u + c2) + BOUND_MARGIN * (u.abs() + c2)
-    l_now = (l - acc) - BOUND_MARGIN * (l.abs() + acc)
-    return u_now, l_now
+    return (u + c2) + BOUND_MARGIN * (u.abs() + c2)
+
+
+def current_bounds(u, l, ga, acc):
+    """The stored bounds in current coordinates: (u (n,), l (n, G)), fp32
+    whatever l's storage dtype."""
+    lf = l.float()
+    return (_u_now(u, ga, acc),
+            (lf - acc) - BOUND_MARGIN * (lf.abs() + acc))
+
+
+def _lmin_now(l, acc):
+    """min over the groups of the current lower bounds, (n,) fp32: with
+    t = l - acc (1 + m), per row min_g t - m (max_g |t| + max_g acc (1 +
+    m)), never above the minimum of :func:`current_bounds`' l (|l| <= |t|
+    + acc (1 + m)); in row chunks, one write and one read of t each."""
+    acc_m = acc * (1.0 + BOUND_MARGIN)
+    slack = BOUND_MARGIN * acc_m.max()
+    step = max(1, BOUND_CHUNK_ELEMENTS // l.shape[1])
+    out = torch.empty((l.shape[0],), dtype=torch.float32, device=l.device)
+    for start in range(0, l.shape[0], step):
+        # a bf16 l promotes to fp32 in the subtraction itself
+        lo, hi = torch.aminmax(l[start:start + step] - acc_m, dim=1)
+        out[start:start + step] = (
+            lo - BOUND_MARGIN * torch.maximum(lo.abs(), hi.abs()) - slack)
+    return out
 
 
 def _tables(c_new, layout, dtype, metric) -> _Tables:
@@ -147,61 +224,96 @@ def _tighten(xb, xsqb, ab, t: _Tables, eps, metric):
     return D.finalize_distance(score, xsqb, metric)
 
 
+def _exact_u(xb, a, t: _Tables, metric):
+    """Exact distance of rows ``xb`` to the centroids ``a`` (subtract and
+    square, no cancellation), rounded up by f * 2^-22 relative, above the
+    fp32 sum's rounding at any feature count."""
+    chord = torch.linalg.vector_norm(xb - t.c_ext[a], dim=1) \
+        * (1.0 + xb.shape[1] * 2.0 ** -22)
+    if metric == D.DistanceMetric.L2:
+        return chord
+    return 2.0 * torch.arcsin(torch.clamp(chord * 0.5, 0.0, 1.0))
+
+
+def _row_chunks(rows, n: int, step: int):
+    """Index chunks of ``rows`` (ascending int64 ids), or slices of all n
+    rows when ``rows`` is None."""
+    if rows is None:
+        for start in range(0, n, step):
+            yield slice(start, start + step)
+    else:
+        for start in range(0, rows.numel(), step):
+            yield rows[start:start + step]
+
+
 def _refresh(x, x_sq, aid, rows, state, t: _Tables, layout, metric):
-    """Fresh exact bounds for ``rows`` (ascending int64 ids) under their
-    new assignment ``aid``; writes ``state`` = (u, l, ga, acc) in place."""
+    """Fresh exact (u, l, ga) for ``rows`` (ascending int64 ids, None for
+    all) under their new assignment ``aid``; writes ``state`` = (u, l, ga,
+    acc) in place."""
     u, l, ga, acc = state
     groups, cap = layout.pad_src.shape
-    f = x.shape[1]
     eps = D.rounding_eps(x.dtype)
-    u_eps = f * 2.0 ** -22
-    step = max(1, BOUND_CHUNK_ELEMENTS // (groups * cap))
-    for start in range(0, rows.numel(), step):
-        r = rows[start:start + step]
+    for r in _row_chunks(rows, x.shape[0],
+                         max(1, BOUND_CHUNK_ELEMENTS // (groups * cap))):
         xb = x[r]
         a = aid[r].long()
-        diff = xb.float() - t.c_ext[a]
-        # upward margin on the elementwise fp32 sum of f squares
-        d2 = torch.sum(diff * diff, dim=1) * (1.0 + u_eps)
-        if metric == D.DistanceMetric.L2:
-            u_new = torch.sqrt(d2)
-        else:
-            u_new = 2.0 * torch.arcsin(
-                torch.clamp(torch.sqrt(d2) * 0.5, 0.0, 1.0))
+        u_new = _exact_u(xb, a, t, metric)
         own = layout.flat_slot[a]
         g_new = own // cap
         sp = D.matmul_f32(xb, t.panel_t) + t.bias
-        sp = torch.where(torch.isfinite(sp), sp, config.PAD_PENALTY)
+        torch.nan_to_num_(sp, nan=config.PAD_PENALTY,
+                          posinf=config.PAD_PENALTY,
+                          neginf=config.PAD_PENALTY)
         sp.scatter_(1, own[:, None], config.PAD_PENALTY)
         l_sc = sp.view(-1, groups, cap).amin(dim=2)
         l_new = D.finalize_distance(l_sc, x_sq[r][:, None], metric)
         # downward margin: the panel product rounds unlike the kernel's
         l_new = l_new - eps * (1.0 + l_new)
         u[r] = _u_store(u_new, acc[g_new])
-        l[r] = l_new + acc
+        l[r] = lower_cast(l_new + acc, l.dtype)
+        ga[r] = g_new
+
+
+def _refresh_u(x, aid, rows, state, t: _Tables, layout, metric):
+    """Exact u and the group ga of ``rows`` (None for all) under ``aid``;
+    l is kept (a plain pass).  Writes ``state`` in place."""
+    u, _l, ga, acc = state
+    cap = layout.cap
+    for r in _row_chunks(rows, x.shape[0],
+                         max(1, BOUND_CHUNK_ELEMENTS // x.shape[1])):
+        a = aid[r].long()
+        g_new = layout.flat_slot[a] // cap
+        u[r] = _u_store(_exact_u(x[r], a, t, metric), acc[g_new])
         ga[r] = g_new
 
 
 def yy_run(x, x_sq, valid, assign, c_used, sums, counts, prev_changed: int,
-           layout: GroupLayout, *, n_clusters: int, metric):
+           layout: GroupLayout, *, n_clusters: int, metric, sched=None,
+           bounds_dtype=torch.float32):
     """The Yinyang main loop from a Lloyd draft's last step: its
     assignment, the centroids it was computed against, its running
     (sums, counts) and reassignment count.  Yields a :class:`YinyangStep`
-    per iteration until the caller stops iterating.
+    per iteration until the caller stops iterating.  ``sched`` is the
+    :class:`Schedule` the caller's controller steers (a fresh one when
+    None); ``bounds_dtype`` the storage of l (fp32 or bf16).
 
-    The first iteration has no bounds yet: every valid row is a candidate
-    and goes through the kernel untightened, which fills every bound."""
+    The first iteration has no bounds yet: it refreshes every bound, on
+    the dense path (on the sparse one in a triage mode, every valid row a
+    candidate)."""
     k = n_clusters
     n = x.shape[0]
     groups, cap = layout.pad_src.shape
     dev = x.device
     eps = D.rounding_eps(x.dtype)
     real = layout.pad_pen == 0
+    s = Schedule() if sched is None else sched
+    debug = int(config.YY_DEBUG_MODE)
+    dense_rows = np.float32(config.YY_DENSE_FRACTION) * np.float32(n)
+    backoff_max = int(config.YY_REFRESH_BACKOFF_MAX)
     u = torch.zeros((n,), dtype=torch.float32, device=dev)
-    l = torch.zeros((n, groups), dtype=torch.float32, device=dev)
+    l = torch.zeros((n, groups), dtype=bounds_dtype, device=dev)
     ga = torch.zeros((n,), dtype=torch.int64, device=dev)
     acc = torch.zeros((groups,), dtype=torch.float32, device=dev)
-    all_rows = torch.arange(n, device=dev)
     n_valid = int(valid.sum())
     c_cur = c_used.float()
     first = True
@@ -212,35 +324,105 @@ def yy_run(x, x_sq, valid, assign, c_used, sums, counts, prev_changed: int,
         acc = (acc + torch.where(real, drift[layout.pad_src], 0.0).amax(1)
                ) * (1.0 + 2.0 ** -20)
         t = _tables(c_new, layout, x.dtype, metric)
-        u_now, l_now = current_bounds(u, l, ga, acc)
-        lmin = l_now.amin(dim=1)
-        cand = valid if first else valid & (u_now >= lmin)
-        n_cand = int(cand.sum())
-        dense = C.predict_dense(prev_changed, n)
-        if dense:
-            aid, _best, sums, counts, changed_t = K.fused_lloyd_pass(
-                x, valid, assign, c_new, **kw)
-            rows = all_rows
+        state = (u, l, ga, acc)
+        lmin = _lmin_now(l, acc)
+        if first or debug == 1:   # no bounds yet; triage distrusts the filter
+            cand, n_cand = valid, n_valid
         else:
+            cand = valid & (_u_now(u, ga, acc) >= lmin)
+            n_cand = int(cand.sum())
+        sum_dense = C.predict_dense(prev_changed, n)
+        # the triage modes exercise the sparse path in every iteration
+        dense = not debug and (first or not s.sparse_ok
+                               or np.float32(n_cand) > dense_rows)
+
+        # ---- the schedule (kmcuda_tpu/ops/yinyang.py:669-705) ----------
+        if s.ref_any:
+            period = min(s.period * 2, backoff_max) if dense else 1
+        else:
+            period = s.period
+        refresh = dense and s.refresh_in <= 0 and not s.ref_any
+        tighten = s.tskip <= 0
+        acc_now = s.acc_extra + max(n_cand - s.cand_mark, 0)
+        sparse_refresh = (not dense and not s.ref_any and (
+            s.cand_mark == 0
+            or np.float32(acc_now)
+            >= np.float32(config.YY_SPARSE_REFRESH_SURCHARGE)
+            * np.float32(min(s.prev_passed, n_cand))))
+        if debug:   # triage tightens and refreshes every bound it touches
+            sparse_refresh, tighten = True, True
+
+        # ---- the survivors of a sparse path -----------------------------
+        rows = None
+        if not dense:
             rows = torch.nonzero(cand).squeeze(1)
-            if not first:
+            if tighten:
                 ab = assign[rows].long()
                 u_ex = _tighten(x[rows], x_sq[rows], ab, t, eps, metric)
                 u[rows] = _u_store(u_ex, acc[layout.flat_slot[ab] // cap])
-                rows = rows[u_ex >= lmin[rows]]
-            aid, changed_t = assign, 0
+                if debug != 2:   # triage mode 2 distrusts the tighten
+                    rows = rows[u_ex >= lmin[rows]]
+
+        # ---- assignment: exactly Lloyd's iteration, or B2 gathered -----
+        moved = None
+        if sum_dense:
+            aid, _best, sums, counts, changed_t = K.fused_lloyd_pass(
+                x, valid, assign, c_new, **kw)
+            changed = int(changed_t)
+        elif dense:
+            aid, _best, changed_t = K.assign_only_pass(
+                x, valid, assign, c_new, **kw)
+            changed = int(changed_t)
+            order, _ = C.stable_partition(aid != assign)
+            moved = order[:changed]
+        else:
+            aid, changed, moved = assign, 0, rows[:0]
             if rows.numel():
                 aid_r, _best, changed_t = K.assign_only_pass(
                     x[rows], valid[rows], assign[rows], c_new, **kw)
                 aid = assign.index_copy(0, rows, aid_r)
-        changed = int(changed_t)
-        if not dense:
-            order = rows[aid[rows] != assign[rows]]
-            d_sums, d_counts = C.delta_compacted(x, aid, assign, order,
+                changed = int(changed_t)
+                moved = rows[aid_r != assign[rows]]
+        if moved is not None:
+            d_sums, d_counts = C.delta_compacted(x, aid, assign, moved,
                                                  changed, n_clusters=k)
             sums = sums + d_sums
             counts = counts + d_counts
-        _refresh(x, x_sq, aid, rows, (u, l, ga, acc), t, layout, metric)
         passed = n_valid if dense else rows.numel()
-        yield YinyangStep(c_new, aid, changed, n_cand, passed, u, l, ga, acc)
+
+        # ---- bounds: the four variants, then the moved-row patch --------
+        refreshed = refresh or sparse_refresh
+        if refreshed:
+            _refresh(x, x_sq, aid, rows, state, t, layout, metric)
+        else:
+            _refresh_u(x, aid, rows, state, t, layout, metric)
+        patched = 0
+        if not refreshed and changed:
+            if moved is None:
+                moved = torch.nonzero(aid != assign).squeeze(1)
+            _refresh(x, x_sq, aid, moved, state, t, layout, metric)
+            patched = changed
+        variant = VARIANTS[(0 if dense else 2) + int(refreshed)]
+
+        # ---- schedule update (:722-731, :809-825) ----------------------
+        s.refresh_in = ((period if refresh else s.refresh_in - 1) if dense
+                        else 0)
+        if s.ref_any:
+            s.cand_mark = n_cand
+        s.acc_extra = 0 if s.ref_any or refreshed else acc_now
+        if not dense and tighten:
+            if np.float32(n_cand - passed) >= (
+                    np.float32(config.YY_TIGHTEN_MIN_PRUNE)
+                    * np.float32(n_cand)):
+                s.tskip, s.tperiod = 0, 1
+            else:
+                s.tskip, s.tperiod = s.tperiod, min(s.tperiod * 2,
+                                                    backoff_max)
+        elif not dense:
+            s.tskip -= 1
+        s.period = period
+        s.prev_passed = passed
+        s.ref_any = refreshed
+        yield YinyangStep(c_new, aid, changed, n_cand, passed, u, l, ga, acc,
+                          variant, patched)
         assign, c_cur, prev_changed, first = aid, c_new, changed, False
