@@ -44,10 +44,22 @@ centers and, as the JAX bench seeds it, by AFK-MC2 (m=200); recall
 against a brute force on the card; and the same call on a CUDA and a CPU
 tensor of the 13K blob fixture.
 
-Prints the card's name and power limit beside every time, a JSON line of
-the kernels, and as its last line a JSON object with ``"ok": true``.  Any
-failure raises, so the exit code is non-zero; so it is without a CUDA
-device, or outside a checkout of the repository.
+The C ABI (``kmcuda_torch.capi`` with ``KMTPU_PLATFORM`` unset):
+``kmeans_from_pointers`` at the headline configuration from one imported
+start, Lloyd and Yinyang, bitwise equal to ``kmeans_cuda`` on the same
+numpy arrays (assignments, centroids, average distance, iteration lines),
+walls beside the call's; the handle protocol at the kNN configuration
+(upload, k-means from the blob centers, 16-NN, one fetch) bitwise equal
+to ``kmeans_cuda`` / ``knn_cuda`` on CUDA tensors, with tie-aware
+recall@16 of 1.0, its wall and the bytes it copied each way (from a
+traced repeat); then ``native_torch`` built with cmake and ninja and the
+C smoke of ``native/`` run against it, or a line naming what the host
+lacks for the build.
+
+Prints the card's name and power limit beside every time, the smoke's
+wall, a JSON line of the kernels, and as its last line a JSON object with
+``"ok": true``.  Any failure raises, so the exit code is non-zero; so it
+is without a CUDA device, or outside a checkout of the repository.
 
 Tolerances (kernel vs plain twin on the same tensors):
 - B2 on a gathered subset of the rows: assignments and best scores
@@ -75,17 +87,20 @@ Tolerances (kernel vs plain twin on the same tensors):
 """
 
 import contextlib
+import ctypes
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
+import sysconfig
 import time
 
 import numpy as np
 import torch
 
-from kmcuda_torch import config, kmeans_cuda, knn_cuda
+from kmcuda_torch import capi, config, kmeans_cuda, knn_cuda
 from kmcuda_torch.models import initialization as I
 from kmcuda_torch.models import knn as TK
 from kmcuda_torch.models import yinyang as Y
@@ -841,6 +856,7 @@ def check_small_yinyang_agreement():
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -963,6 +979,11 @@ def main() -> int:
 
     knn = knn_phase(tag)
 
+    capi_counts = capi_phase(tag, x)
+    for name in ("fused_lloyd_pass", "assign_only_pass"):
+        total[name] += capi_counts[name]
+    knn["launches"] += capi_counts["knn_walk"]
+
     # top-level numbers at the headline shape (100K x 256 fp32, k=1024);
     # "bf16_1m" the same at 1M x 256 bf16; B1 also carries its segment sum
     def numbers(t):
@@ -990,6 +1011,8 @@ def main() -> int:
         "source": "kmcuda_torch/csrc/knn_walk.cu",
         "replaces": "kmcuda_tpu/ops/knn_pallas.py:150", **knn,
         "library_ms": None, "library": "no single call"})
+    print("%s smoke wall %.1f s" % (tag, time.perf_counter() - t_start),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1337,6 +1360,250 @@ def check_small_knn_agreement():
             raise AssertionError("13K kNN: row %d differs off ties" % r)
     print("small kNN input: card and CPU agree (%d tie rows), identical "
           "log: %s" % (rows.numel(), logs[0].strip()), flush=True)
+
+
+def _ptr(arr) -> int:
+    return arr.ctypes.data_as(ctypes.c_void_p).value
+
+
+def _launches() -> dict:
+    return {**K.LAUNCHES, **KK.LAUNCHES}
+
+
+def _reset_launches():
+    K.reset_launch_counts()
+    KK.reset_launch_counts()
+
+
+def memcpy_bytes(trace_path) -> dict:
+    """Copies of a ``torch.profiler`` Chrome trace by direction: {"HtoD":
+    [count, bytes, largest], ...}, from its ``gpu_memcpy`` events."""
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    out = {}
+    for ev in events:
+        if ev.get("cat") != "gpu_memcpy":
+            continue
+        kind = ev["name"].split()[1]
+        nbytes = int(ev.get("args", {}).get("bytes", 0))
+        entry = out.setdefault(kind, [0, 0, 0])
+        entry[0] += 1
+        entry[1] += nbytes
+        entry[2] = max(entry[2], nbytes)
+    return out
+
+
+def capi_pointer_headline(tag, x):
+    """``kmeans_from_pointers`` at the headline configuration from one
+    imported start (rows of x, seed 1), Lloyd and Yinyang, against
+    ``kmeans_cuda`` on the same numpy arrays: assignments, centroids and
+    average distance bitwise equal, identical iteration lines; walls of
+    both, in turns (pointer, call, call, pointer, pointer, call).  Returns
+    the capi calls' launch counts."""
+    n, f, k = HEADLINE["n"], HEADLINE["f"], HEADLINE["k"]
+    xh = x.cpu().numpy()
+    c0 = np.ascontiguousarray(
+        xh[np.random.RandomState(1).choice(n, k, replace=False)])
+    total = {name: 0 for name in _launches()}
+    for yt in (0.0, 0.1):
+        def pointers(verbosity):
+            cent, assign = c0.copy(), np.zeros(n, np.uint32)
+            code, avg = capi.kmeans_from_pointers(
+                3, 0, 0.002, yt, 0, n, f, k, 1, 0, 0, verbosity, _ptr(xh),
+                _ptr(cent), _ptr(assign), 1)
+            if code != 0:
+                raise AssertionError("kmeans_from_pointers returned %d" % code)
+            return cent, assign, avg
+
+        def call(verbosity):
+            return kmeans_cuda(xh, k, init=c0, tolerance=0.002, yinyang_t=yt,
+                               seed=1, average_distance=True,
+                               verbosity=verbosity)
+
+        _reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            got = pointers(1)
+        launches = _launches()
+        got_log = buf.getvalue()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            want = call(1)
+        if iteration_lines(got_log) != iteration_lines(buf.getvalue()):
+            raise AssertionError("capi yinyang_t=%g: iteration lines differ"
+                                 % yt)
+        if not (np.array_equal(got[1], want[1])
+                and np.array_equal(got[0], want[0], equal_nan=True)
+                and got[2] == want[2]):
+            raise AssertionError("capi yinyang_t=%g: pointer path differs "
+                                 "from kmeans_cuda" % yt)
+        walls = {"pointers": [], "call": []}
+        for name in ("pointers", "call", "call", "pointers", "pointers",
+                     "call"):
+            fn = pointers if name == "pointers" else call
+            walls[name].append(wall_s(lambda: fn(0)))
+        for name, count in launches.items():
+            total[name] += count
+        print("%s capi kmeans_from_pointers %dx%d fp32 k=%d, yinyang_t %g, "
+              "imported start, tolerance 0.002, %d iterations: "
+              "bitwise equal to kmeans_cuda on the same numpy arrays "
+              "(assignments, centroids, average distance %.9g, iteration "
+              "lines); wall %.4f s (min of 3: %s) against the call's %.4f s "
+              "(min of 3: %s); launches %s"
+              % (tag, n, f, k, yt, count_iterations(got_log), got[2],
+                 min(walls["pointers"]),
+                 ", ".join("%.4f" % w for w in walls["pointers"]),
+                 min(walls["call"]),
+                 ", ".join("%.4f" % w for w in walls["call"]),
+                 launches), flush=True)
+    return total
+
+
+def capi_handle_pipeline(tag):
+    """The handle protocol at the JAX bench's kNN configuration (1M x 256
+    fp32 blobs made on the card, copied to the host): upload, k-means from
+    the blob centers (import handle), 16-NN, one fetch of the neighbours.
+    Both results bitwise equal to ``kmeans_cuda`` / ``knn_cuda`` on the
+    CUDA tensors, tie-aware recall@16 of 1.0; the wall, and the bytes
+    copied each way from a traced repeat.  Returns the launch counts."""
+    b = KNN_BENCH
+    n, f, k, kn = b["n"], b["f"], b["k"], b["kn"]
+    x, centers = blobs_on_card(n, f, k, 11)
+    xh, ch = x.cpu().numpy(), centers.cpu().numpy()
+    nbr = np.zeros((n, kn), np.uint32)
+
+    def pipeline():
+        code, hs = capi.upload_from_pointer(_ptr(xh), n, f, 0)
+        code2, hi = capi.upload_from_pointer(_ptr(ch), k, f, 0)
+        code3, hc, ha, _avg = capi.kmeans_from_handles(
+            3, 0, 0.01, 0.0, 0, k, 11, 0, 0, hs, hi, 0)
+        code4, hn = capi.knn_from_handles(kn, 0, 0, 0, hs, hc, ha)
+        code5 = capi.fetch_to_pointer(hn, _ptr(nbr), nbr.nbytes)
+        if (code, code2, code3, code4, code5) != (0,) * 5:
+            raise AssertionError("capi handle pipeline returned %s"
+                                 % ((code, code2, code3, code4, code5),))
+        out = capi._handles[hc], capi._handles[ha]
+        for h in (hs, hi, hc, ha, hn):
+            capi.release_handle(h)
+        return out
+
+    _reset_launches()
+    wall = wall_s(pipeline)
+    launches = _launches()
+    got_c, got_a = pipeline()
+
+    def tensor_calls():
+        c, a = kmeans_cuda(x, k, init=centers, tolerance=0.01, yinyang_t=0,
+                           seed=11)
+        return c, a, knn_cuda(kn, x, c, a)
+
+    c_ref, a_ref, nb_ref = tensor_calls()
+    tensor_s = wall_s(tensor_calls)
+    if not (torch.equal(got_c, c_ref) and torch.equal(got_a, a_ref)
+            and np.array_equal(nbr, nb_ref.cpu().numpy().view(np.uint32))):
+        raise AssertionError("capi handle pipeline differs from kmeans_cuda /"
+                             " knn_cuda on CUDA tensors")
+    recall, tie_recall = check_recall(
+        x, torch.from_numpy(nbr.view(np.int32)).to(x.device), kn)
+    if tie_recall != 1.0:
+        raise AssertionError("capi handle pipeline: tie-aware recall %.6f"
+                             % tie_recall)
+    trace = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke", "capi_pipeline.pt.trace.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        pipeline()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(trace)
+    copies = memcpy_bytes(trace)
+    h2d, d2h = copies.get("HtoD", [0, 0, 0]), copies.get("DtoH", [0, 0, 0])
+    print("%s capi handle pipeline %dx%d fp32 k=%d %d-NN (upload, "
+          "kmeans_from_handles from the blob centers, knn_from_handles, one "
+          "fetch): wall %.4f s (the same two calls on the CUDA tensors: "
+          "%.4f s); bitwise equal to kmeans_cuda / knn_cuda on CUDA "
+          "tensors; recall@16 %.6f, tie-aware %.6f on 1024 queries; "
+          "launches %s; traced copies: H2D %d bytes in %d copies (samples "
+          "%d, centers %d), D2H %d bytes in %d copies (largest %d; the "
+          "neighbours are %d, the kNN tour's k x k matrix %d), device to "
+          "device %s"
+          % (tag, n, f, k, kn, wall, tensor_s, recall, tie_recall, launches,
+             h2d[1],
+             h2d[0], xh.nbytes, ch.nbytes, d2h[1], d2h[0], d2h[2],
+             nbr.nbytes, 4 * k * k, copies.get("DtoD", "none")), flush=True)
+    if not copies:
+        print("capi handle pipeline: the trace holds no copies (bytes not "
+              "measured)", flush=True)
+    elif d2h[2] != nbr.nbytes or d2h[1] - d2h[2] - 4 * k * k > 4096:
+        # besides the fetch, the kNN plan's greedy tour reads the k x k
+        # fp32 center distances on the host (models/knn._tour_relabel);
+        # the rest are the host syncs' scalars
+        raise AssertionError("capi handle pipeline: D2H beyond the "
+                             "neighbours and the tour's matrix: %s" % (d2h,))
+    del x, centers, got_c, got_a, c_ref, a_ref, nb_ref
+    return launches
+
+
+def capi_shim(tag):
+    """Builds native_torch (cmake, ninja) and runs the C smoke of native/
+    against it on the card, with KMTPU_PLATFORM unset.  Where the host
+    lacks a piece of the build, prints which and returns."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    missing = [tool for tool in ("cmake", "ninja", "c++")
+               if shutil.which(tool) is None]
+    include = sysconfig.get_paths()["include"]
+    if not os.path.exists(os.path.join(include, "Python.h")):
+        missing.append(os.path.join(include, "Python.h"))
+    if missing:
+        print("capi shim: not built on this host: %s missing"
+              % ", ".join(missing), flush=True)
+        return
+    build = os.path.join(root, "build", "native_torch")
+    shutil.rmtree(build, ignore_errors=True)   # no cache of another host
+    t = time.perf_counter()
+    for cmd in (["cmake", "-S", os.path.join(root, "native_torch"), "-B",
+                 build, "-G", "Ninja"], ["cmake", "--build", build]):
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            raise AssertionError("native_torch build failed: %s%s"
+                                 % (res.stdout, res.stderr))
+    build_s = time.perf_counter() - t
+    env = {key: val for key, val in os.environ.items()
+           if key != "KMTPU_PLATFORM"}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    t = time.perf_counter()
+    res = subprocess.run([os.path.join(build, "kmtpu_torch_smoke")], env=env,
+                         capture_output=True, text=True, timeout=300)
+    run_s = time.perf_counter() - t
+    for word in ("KMTPU_SMOKE_OK", "KMTPU_DEVICE_PIPELINE_OK", "calculated "):
+        if res.returncode != 0 or word not in res.stdout:
+            raise AssertionError("kmtpu_torch_smoke on the card: rc %d\n%s%s"
+                                 % (res.returncode, res.stdout, res.stderr))
+    print("%s capi shim: libkmtpu_torch.so and kmtpu_torch_smoke built in "
+          "%.1f s; the C smoke (native/test_kmtpu.c) passed on the card in "
+          "%.1f s (a process of its own: interpreter, torch and CUDA start "
+          "included): %s"
+          % (tag, build_s, run_s, " | ".join(res.stdout.split("\n")[-4:-1])),
+          flush=True)
+
+
+def capi_phase(tag, x):
+    """The C ABI on the card with KMTPU_PLATFORM unset: the pointer path at
+    the headline, the handle pipeline at 1M and the compiled shim.
+    Returns the capi calls' launch counts; fails unless each of B1, B2 and
+    B3 was launched."""
+    os.environ.pop("KMTPU_PLATFORM", None)
+    counts = capi_pointer_headline(tag, x)
+    for name, count in capi_handle_pipeline(tag).items():
+        counts[name] += count
+    for name, count in counts.items():
+        if count == 0:
+            raise AssertionError("capi phase: %s never launched" % name)
+    print("capi phase launches (pointer path and handle pipeline): %s"
+          % counts, flush=True)
+    capi_shim(tag)
+    return counts
 
 
 if __name__ == "__main__":
