@@ -26,7 +26,18 @@ copy of this script and ``chip_smoke.py`` in an older checkout times that
 checkout's Yinyang on the same data) and ``tail`` (the deep-tail restart's
 Yinyang and Lloyd traced) and ``grouping`` (the Yinyang grouping of
 1024 centroids into 102 groups, warm: its k-means++, its Lloyd, the
-whole step).  The data is
+whole step) and ``devices`` (with several cards: headline Lloyd, the
+default call, 1,000,000 x 256 bf16 Lloyd and kNN at 1,000,000 x 256 fp32
+16-NN over 1, 2, 4 and 8 real cards, as many as the host has: a CUDA
+tensor on card 0 with the mask of the first d cards, its rows scattered
+over them; walls, bitwise repeats, the contract against one card;
+k-means++ alone over 1, 2, 4, 8 cards (walls, picks bitwise one card's);
+then the headline, the default call, its k-means++ and kNN traced over
+all the cards (the default call and k-means++ also over one), busy share
+per card and the host's torch op count;
+with one card it says it did not run) and ``shards`` (k-means++ and the
+default call on 1, 2 and 4 logical shards of card 0: walls, picks, and
+traces at 1 and 4 shards with the host's torch op count).  The data is
 ``chip_smoke.py``'s.  The ``walk`` phase uses only entry points that
 earlier versions of the port have too, so a copy of this script times an
 older checkout's kernel on the same inputs.
@@ -41,6 +52,7 @@ line carries the card's name and power limit.
 import collections
 import contextlib
 import io
+import subprocess
 import sys
 import time
 
@@ -54,12 +66,13 @@ from kmcuda_torch.models import knn as TK
 from kmcuda_torch.models import lloyd as L
 from kmcuda_torch.models import yinyang as Y
 from kmcuda_torch.models.problem import prepare
+from kmcuda_torch.parallel.devices import Topology
 from kmcuda_torch.ops import distance as D
 from kmcuda_torch.ops import knn_kernels as KK
 from kmcuda_torch.utils.logging import Logger
 
 PHASES = ("init", "default", "spherical", "bf16", "knn", "walk", "crossover",
-          "yinyang", "tail", "grouping")
+          "yinyang", "tail", "grouping", "devices", "shards")
 
 
 def yinyang_walls(card, label, x, k, **kw):
@@ -178,31 +191,226 @@ def traced(card, label, fn, top=14):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    intervals = []
+    intervals = collections.defaultdict(list)
     by_name = collections.defaultdict(lambda: [0, 0.0])
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             start, end = e.time_range.start, e.time_range.end
-            intervals.append((start, end))
+            intervals[e.device_index].append((start, end))
             by_name[e.name][0] += 1
             by_name[e.name][1] += (end - start) / 1e3
-    busy_us, cur_s, cur_e = 0.0, None, None
+    busy = {dev: union_us(iv) / 1e6 for dev, iv in intervals.items()}
+    lead = min(busy) if busy else 0
+    host_ops = sum(1 for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CPU
+                   and e.cpu_parent is None and e.name.startswith("aten::"))
+    print("[%s] %s traced: wall %.4f s, device busy %.4f s (%.1f%%), %d "
+          "device ops, %d host torch ops%s" % (
+              card, label, wall, busy.get(lead, 0.0),
+              100 * busy.get(lead, 0.0) / wall,
+              sum(len(iv) for iv in intervals.values()), host_ops,
+              "" if len(busy) < 2 else "; busy per card: " + ", ".join(
+                  "cuda:%d %.4f s (%.1f%%)" % (dev, b, 100 * b / wall)
+                  for dev, b in sorted(busy.items()))), flush=True)
+    for name, (n, ms) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][1])[:top]:
+        print("   %9.3f ms %6d x  %s" % (ms, n, name[:110]), flush=True)
+
+
+def union_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, cur_s, cur_e = 0.0, None, None
     for start, end in sorted(intervals):
         if cur_e is None or start > cur_e:
             if cur_e is not None:
-                busy_us += cur_e - cur_s
+                total += cur_e - cur_s
             cur_s, cur_e = start, end
         else:
             cur_e = max(cur_e, end)
     if cur_e is not None:
-        busy_us += cur_e - cur_s
-    busy = busy_us / 1e6
-    print("[%s] %s traced: wall %.4f s, device busy %.4f s (%.1f%%), %d "
-          "device ops" % (card, label, wall, busy, 100 * busy / wall,
-                          len(intervals)), flush=True)
-    for name, (n, ms) in sorted(by_name.items(),
-                                key=lambda kv: -kv[1][1])[:top]:
-        print("   %9.3f ms %6d x  %s" % (ms, n, name[:110]), flush=True)
+        total += cur_e - cur_s
+    return total
+
+
+def sync_all():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def devices_phase(card, x, k):
+    """The public calls over 1, 2, 4 and 8 real cards (as many as the host
+    has): a CUDA tensor on card 0 with the mask of the first d cards, its
+    rows scattered over them and its results back on card 0.  Two runs
+    per d (bitwise equal; walls min of 2); headline Lloyd held to the
+    contract against one card (``chip_smoke.check_count_contract``), the
+    default call too from 4 cards up (to its iteration counts at 2), 1M
+    bf16 to one card's first assignment from one start, k-means++ to one
+    card's picks, kNN to one card's neighbours up to fp64 ties; then the
+    traces."""
+    n_dev = torch.cuda.device_count()
+    if n_dev < 2:
+        print("[%s] devices: not run (this host has one CUDA device)"
+              % card, flush=True)
+        return
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    print("devices: %d cards: %s" % (n_dev, " | ".join(cards)), flush=True)
+    counts = [d for d in (1, 2, 4, 8) if d <= n_dev]
+
+    def timed(fn):
+        buf = io.StringIO()
+        sync_all()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        sync_all()
+        return out, buf.getvalue(), time.perf_counter() - t
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    xb = torch.rand(S.BF16_RUN["n"], S.BF16_RUN["f"], generator=g,
+                    device="cuda").to(torch.bfloat16)
+    lloyd = dict(init="random", seed=1, tolerance=0.002, yinyang_t=0,
+                 max_iterations=15)
+    cases = (("headline Lloyd 100000x256 fp32", x, lloyd),
+             ("default call 100000x256 fp32", x,
+              dict(seed=1, tolerance=0.002, max_iterations=60)),
+             ("1M bf16 Lloyd", xb, dict(lloyd, max_iterations=10)))
+    for label, data, kw in cases:
+        res, walls = {}, {}
+        for d in counts:
+            runs = [timed(lambda: kmeans_cuda(data, k, device=(1 << d) - 1,
+                                              verbosity=2, **kw))
+                    for _ in range(2)]
+            S.check_repeat("%s on %d cards" % (label, d), runs[0][:2],
+                           runs[1][:2])
+            plans = [l for l in runs[0][1].splitlines()
+                     if l.startswith("plan: ")]
+            if len(plans) != d:
+                raise AssertionError("%s: %d plan lines on %d cards"
+                                     % (label, len(plans), d))
+            res[d], walls[d] = runs[0][:2], min(r[2] for r in runs)
+        against = []
+        for d in counts[1:]:
+            if label.startswith("headline"):
+                against.append("d=%d %s" % (d, S.check_count_contract(
+                    label, res[1], res[d])))
+            elif label.startswith("default") and d == 2:
+                against.append("d=%d %s" % (d, S.check_iteration_counts(
+                    label, res[1], res[d])))
+            elif label.startswith("default"):
+                against.append("d=%d %s" % (d, S.check_count_contract(
+                    label, res[1], res[d])))
+            else:
+                against.append("d=%d %d assignments differ" % (
+                    d, int((res[d][0][1] != res[1][0][1]).sum())))
+        print("[%s] devices %s: repeats bitwise at every d; walls %s; "
+              "against one card: %s" % (card, label, ", ".join(
+                  "d=%d %.4f s" % (d, w) for d, w in walls.items()),
+                  "; ".join(against)), flush=True)
+    c0 = xb[torch.randperm(xb.shape[0], generator=I.generator(1))[:k]
+            .cuda()].float()
+    first = {d: kmeans_cuda(xb, k, init=c0, tolerance=0.0, yinyang_t=0,
+                            max_iterations=1, device=(1 << d) - 1)[1]
+             for d in counts}
+    for d in counts[1:]:
+        if not torch.equal(first[d], first[1]):
+            raise AssertionError("1M bf16 on %d cards: the first assignment "
+                                 "is not one card's" % d)
+    print("[%s] devices 1M bf16 Lloyd: from one start the first assignment "
+          "is bitwise one card's at every d" % card, flush=True)
+    del xb, first
+
+    # k-means++ alone, the default call's first phase
+    L2 = D.DistanceMetric.L2
+    picks, pp_walls = {}, {}
+    for d in counts:
+        p = prepare(x, k, L2, Topology([torch.device("cuda", i)
+                                        for i in range(d)]), Logger(0))
+        runs = [timed(lambda: I.init_centroids(p, I.InitMethod.PLUS_PLUS, 1))
+                for _ in range(2)]
+        picks[d], pp_walls[d] = runs[0][0], min(r[2] for r in runs)
+        if not torch.equal(picks[d], picks[1]):
+            raise AssertionError("k-means++ on %d cards: picks differ from "
+                                 "one card's" % d)
+        del p
+    print("[%s] devices k-means++ 100000x256 fp32 k=1024: picks bitwise one "
+          "card's at every d; walls %s" % (card, ", ".join(
+              "d=%d %.4f s" % (d, w) for d, w in pp_walls.items())),
+          flush=True)
+    b = S.KNN_BENCH
+    xk, centers = S.blobs_on_card(b["n"], b["f"], b["k"], 11)
+    c, a = S.cluster(xk, centers, D.DistanceMetric.L2)
+    nbs, walls, fracs = {}, {}, {}
+    for d in counts:
+        runs = [timed(lambda: knn_cuda(b["kn"], xk, c, a,
+                                       device=(1 << d) - 1, verbosity=1))
+                for _ in range(2)]
+        if not torch.equal(runs[0][0], runs[1][0]):
+            raise AssertionError("kNN on %d cards: two runs differ" % d)
+        nbs[d], walls[d] = runs[0][0], min(r[2] for r in runs)
+        fracs[d] = S.fraction(runs[0][1])
+    ties = {d: S.neighbour_ties(xk, nbs[d], nbs[1]) for d in counts[1:]}
+    print("[%s] devices kNN 1000000x256 fp32 k=1024 16-NN: repeats "
+          "bitwise; walls %s; examined fractions %s; rows off one card's "
+          "(all fp64 ties) %s" % (card, ", ".join(
+              "d=%d %.4f s" % (d, w) for d, w in walls.items()),
+              fracs, ties), flush=True)
+    mask = (1 << counts[-1]) - 1
+    traced(card, "headline Lloyd over %d cards" % counts[-1],
+           lambda: kmeans_cuda(x, k, device=mask, **lloyd))
+    for d in sorted({1, counts[-1]}):
+        traced(card, "default call over %d cards" % d,
+               lambda: kmeans_cuda(x, k, device=(1 << d) - 1, seed=1,
+                                   tolerance=0.002, max_iterations=60))
+        p = prepare(x, k, L2, Topology([torch.device("cuda", i)
+                                        for i in range(d)]), Logger(0))
+        traced(card, "k-means++ over %d cards" % d,
+               lambda: I.init_centroids(p, I.InitMethod.PLUS_PLUS, 1))
+        del p
+    traced(card, "kNN 1M 16-NN over %d cards" % counts[-1],
+           lambda: knn_cuda(b["kn"], xk, c, a, device=mask))
+
+
+def shards_phase(card, x, k):
+    """k-means++ and the default call on 1, 2 and 4 logical shards of card
+    0 (``Topology([cuda:0] * d)``; the calls through
+    ``chip_smoke.logical_shards``): walls, min of 2 in turns, picks bitwise
+    one shard's; then both traced at d = 1 and 4.  One card has no peer
+    copies, so this is the host's share of the shard loop alone."""
+    L2 = D.DistanceMetric.L2
+    dev = torch.device("cuda", 0)
+    problems = {d: prepare(x, k, L2, Topology([dev] * d), Logger(0))
+                for d in S.SHARD_COUNTS}
+    pp = {d: (lambda p=problems[d]: I.init_centroids(
+        p, I.InitMethod.PLUS_PLUS, 1)) for d in S.SHARD_COUNTS}
+
+    def default(d):
+        def call():
+            with S.logical_shards(d) as mask:
+                return kmeans_cuda(x, k, device=mask, seed=1,
+                                   tolerance=0.002, max_iterations=60)
+        return call
+
+    picks = {d: pp[d]() for d in S.SHARD_COUNTS}
+    for d in S.SHARD_COUNTS:
+        if not torch.equal(picks[d], picks[1]):
+            raise AssertionError("k-means++ on %d logical shards: picks "
+                                 "differ from one shard's" % d)
+    for label, fns in (("k-means++ 100000x256 fp32 k=1024", pp),
+                       ("default call 100000x256 fp32 k=1024",
+                        {d: default(d) for d in S.SHARD_COUNTS})):
+        fns[1]()
+        walls = {d: [] for d in fns}
+        for _ in range(2):
+            for d, fn in fns.items():
+                walls[d].append(S.wall_s(fn))
+        print("[%s] shards %s on logical shards of one card: %s" % (
+            card, label, ", ".join("d=%d %.4f s" % (d, min(w))
+                                   for d, w in walls.items())), flush=True)
+        for d in (1, 4):
+            traced(card, "%s on %d logical shards" % (label, d), fns[d])
 
 
 def untraced(card, label, fn, reps=2):
@@ -390,6 +598,12 @@ def main(phases) -> int:
                       "restart", xt, k, init=ct, tolerance=0.0,
                       max_iterations=45)
         del xt, ct
+
+    if "devices" in phases:
+        devices_phase(card, x, k)
+
+    if "shards" in phases:
+        shards_phase(card, x, k)
 
     print("[%s] peak memory %.2f GB"
           % (card, torch.cuda.max_memory_allocated() / 1e9), flush=True)

@@ -56,6 +56,23 @@ traced repeat); then ``native_torch`` built with cmake and ninja and the
 C smoke of ``native/`` run against it, or a line naming what the host
 lacks for the build.
 
+Multi-device (``multidevice_phase``): the public calls over 1, 2 and 4
+logical shards of card 0 (the device mask answered with cuda:0 d times),
+which runs the port's shard loop, per-shard kernel launches and
+fixed-order reductions, but no peer copy between cards: Lloyd at the
+headline and the default call on its data (d = 4 repeats bitwise, Yinyang
+equals Lloyd bitwise at d = 4, the final assignment is the argmin, d = 1
+is bitwise the call without a mask, the k-means++ picks are d = 1's;
+Lloyd at d = 2 and 4 meets tests/test_kmeans.py:277-309's contract
+against d = 1: iteration counts within 1, at most 0.2% of the
+assignments differ, 96% of the centroids within rtol 1e-4 / atol 1e-5;
+the default call's iteration counts are within 1 of d = 1's, and where
+its reassignment counts part by fp32 rounding is printed);
+1M x 256 bf16 Lloyd at d = 4 (bitwise repeat, argmin); kNN at 1M x 256
+fp32 16-NN (neighbours d = 1's up to fp64 ties, tie-aware recall@16 1.0,
+examined fractions beside d = 1's); walls of d = 1, 2 and 4.  With
+several cards, numpy input over all of them, with the same checks.
+
 Prints the card's name and power limit beside every time, the smoke's
 wall, a JSON line of the kernels, and as its last line a JSON object with
 ``"ok": true``.  Any failure raises, so the exit code is non-zero; so it
@@ -110,7 +127,10 @@ from kmcuda_torch.ops import assign_kernels as K
 from kmcuda_torch.ops import distance as D
 from kmcuda_torch.ops import knn_kernels as KK
 from kmcuda_torch.ops import yinyang as YY
+from kmcuda_torch.ops import assign as A
 from kmcuda_torch.ops.assign import pad_clusters
+from kmcuda_torch.parallel import devices as DEV
+from kmcuda_torch.parallel.devices import Topology
 from kmcuda_torch.utils.logging import Logger
 import roofline as R
 
@@ -402,14 +422,15 @@ def time_kernels(tag, shape, dtype, reps):
     return out
 
 
-def check_result(x, k, c, a, metric):
+def check_result(x, k, c, a, metric, device=0):
     """Centroids finite or NaN rows of empty clusters (never assigned),
     assignments in [0, k), and equal to the plain assignment against the
     centroids they were computed with, off near-ties.  For fp32 those are
     the returned centroids; bf16 input gets them back rounded to bf16, so
     there the check restarts one iteration from the returned centroids
-    through the same public call, whose assignment is computed against
-    exactly them.  Returns (empty clusters, near-tie rows that differ)."""
+    through the same public call (with the same ``device`` mask, so over
+    the same shards), whose assignment is computed against exactly them.
+    Returns (empty clusters, near-tie rows that differ)."""
     nan_rows = torch.isnan(c).any(dim=1)
     if not bool((torch.isnan(c).all(dim=1) | torch.isfinite(c).all(dim=1))
                 .all()):
@@ -421,7 +442,7 @@ def check_result(x, k, c, a, metric):
     c_used = c.float()
     if c.dtype != torch.float32:
         _c, a = kmeans_cuda(x, k, init=c_used, tolerance=0.0, yinyang_t=0,
-                            max_iterations=1)
+                            max_iterations=1, device=device)
     valid = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
     ref, _best, _ch = K.assign_only_pass_reference(
         x, valid, a, c_used, n_clusters=k, metric=metric)
@@ -984,6 +1005,11 @@ def main() -> int:
         total[name] += capi_counts[name]
     knn["launches"] += capi_counts["knn_walk"]
 
+    md_counts = multidevice_phase(tag, x)
+    for name in ("fused_lloyd_pass", "assign_only_pass"):
+        total[name] += md_counts[name]
+    knn["launches"] += md_counts["knn_walk"]
+
     # top-level numbers at the headline shape (100K x 256 fp32, k=1024);
     # "bf16_1m" the same at 1M x 256 bf16; B1 also carries its segment sum
     def numbers(t):
@@ -1464,7 +1490,8 @@ def capi_handle_pipeline(tag):
     fp32 blobs made on the card, copied to the host): upload, k-means from
     the blob centers (import handle), 16-NN, one fetch of the neighbours.
     Both results bitwise equal to ``kmeans_cuda`` / ``knn_cuda`` on the
-    CUDA tensors, tie-aware recall@16 of 1.0; the wall, and the bytes
+    CUDA tensors over the same cards (mask 0 on handles names every card
+    of the host), tie-aware recall@16 of 1.0; the wall, and the bytes
     copied each way from a traced repeat.  Returns the launch counts."""
     b = KNN_BENCH
     n, f, k, kn = b["n"], b["f"], b["k"], b["kn"]
@@ -1492,10 +1519,12 @@ def capi_handle_pipeline(tag):
     launches = _launches()
     got_c, got_a = pipeline()
 
+    every_card = (1 << torch.cuda.device_count()) - 1
+
     def tensor_calls():
         c, a = kmeans_cuda(x, k, init=centers, tolerance=0.01, yinyang_t=0,
-                           seed=11)
-        return c, a, knn_cuda(kn, x, c, a)
+                           seed=11, device=every_card)
+        return c, a, knn_cuda(kn, x, c, a, device=every_card)
 
     c_ref, a_ref, nb_ref = tensor_calls()
     tensor_s = wall_s(tensor_calls)
@@ -1604,6 +1633,387 @@ def capi_phase(tag, x):
           % counts, flush=True)
     capi_shim(tag)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# Multi-device: the public calls over logical shards of card 0
+
+#: logical shard counts of the multi-device phase
+SHARD_COUNTS = (1, 2, 4)
+
+
+@contextlib.contextmanager
+def logical_shards(d):
+    """The public calls' device mask selects ``d`` logical shards of card 0
+    (``select_devices`` answers with cuda:0 ``d`` times); yields that
+    mask, d bits.  One card holds every shard, so a wall measures the
+    shard loop and its reductions, not a multi-GPU speed-up."""
+    real = DEV.select_devices
+    DEV.select_devices = lambda mask, logger=None: [
+        torch.device("cuda", 0)] * d
+    try:
+        yield (1 << d) - 1
+    finally:
+        DEV.select_devices = real
+
+
+def sharded(fn, d):
+    """``fn(mask)`` on ``d`` logical shards, stdout captured, the launch
+    counts set to 0 first; returns (result, log, wall s, launches).  A
+    log at verbosity 2 must hold one plan line per shard."""
+    _reset_launches()
+    buf = io.StringIO()
+    with logical_shards(d) as mask, contextlib.redirect_stdout(buf):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(mask)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    log = buf.getvalue()
+    plans = [l for l in log.splitlines() if l.startswith("plan: ")]
+    if plans and len(plans) != d:
+        raise AssertionError("%d plan lines on %d shards" % (len(plans), d))
+    return out, log, wall, _launches()
+
+
+def check_count_contract(label, one, many):
+    """tests/test_kmeans.py:277-309's contract of d shards against one:
+    iteration counts within 1, at most 0.2% of the assignments differ,
+    and at least 96% of the centroids (that test's 48 of 50) within rtol
+    1e-4 / atol 1e-5.  The returned centroids are those the last
+    assignment was computed against, so a cluster whose final members
+    agree may still differ by the rows the two runs moved one iteration
+    earlier.  Returns a summary."""
+    (c1, a1), log1 = one
+    (cd, ad), logd = many
+    it1, itd = count_iterations(log1), count_iterations(logd)
+    if abs(it1 - itd) > 1:
+        raise AssertionError("%s: %d iterations against %d on one shard"
+                             % (label, itd, it1))
+    differ = a1 != ad
+    nd = int(differ.sum())
+    if nd > 0.002 * a1.numel():
+        raise AssertionError("%s: %d assignments differ from one shard's"
+                             % (label, nd))
+    k = c1.shape[0]
+    close = torch.isclose(cd.float(), c1.float(), rtol=1e-4, atol=1e-5,
+                          equal_nan=True).all(dim=1)
+    n_close = int(close.sum())
+    if n_close < 0.96 * k:
+        raise AssertionError("%s: %d of %d centroids within rtol 1e-4"
+                             % (label, n_close, k))
+    touched = torch.zeros(k, dtype=torch.bool, device=c1.device)
+    touched[a1[differ].long()] = True
+    touched[ad[differ].long()] = True
+    return ("%d vs %d iterations, %d assignments differ, %d of %d "
+            "centroids within rtol 1e-4 (%d apart among the %d clusters "
+            "whose final members agree)"
+            % (itd, it1, nd, n_close, k, int((~close & ~touched).sum()),
+               int((~touched).sum())))
+
+
+def check_iteration_counts(label, one, many):
+    """The first half of :func:`check_count_contract`, for runs whose
+    trajectories may part by fp32 rounding (uniform data from k-means++
+    starts): iteration counts within 1.  Returns the iteration where the
+    reassignment counts first differ and the assignments that differ at
+    the end."""
+    (_c1, a1), log1 = one
+    (_cd, ad), logd = many
+    l1, ld = iteration_lines(log1), iteration_lines(logd)
+    if abs(len(l1) - len(ld)) > 1:
+        raise AssertionError("%s: %d iterations against %d on one shard"
+                             % (label, len(ld), len(l1)))
+    part = next((i + 1 for i, (u, v) in enumerate(zip(l1, ld)) if u != v),
+                None)
+    return ("%d vs %d iterations, counts part at %s, %d assignments differ"
+            % (len(ld), len(l1), "iteration %d" % part if part else "none",
+               int((a1 != ad).sum())))
+
+
+def check_repeat(label, first, second):
+    (c1, a1), log1 = first
+    (c2, a2), log2 = second
+    if not (torch.equal(a1, a2) and nan_equal(c1, c2)
+            and iteration_lines(log1) == iteration_lines(log2)):
+        raise AssertionError("%s: two runs differ" % label)
+
+
+def neighbour_ties(x, got, want):
+    """Rows where ``got`` and ``want`` neighbour lists differ; fails
+    unless their fp64 distance profiles agree to rtol 1e-6 (ties).
+    Returns the number of such rows."""
+    rows = torch.nonzero((got != want).any(dim=1))[:, 0]
+    if rows.numel():
+        x64 = x[rows].double()[:, None, :]
+        prof = [torch.sort(torch.linalg.norm(x[nb[rows].long()].double()
+                                             - x64, dim=2), dim=1).values
+                for nb in (got, want)]
+        if not torch.allclose(prof[0], prof[1], rtol=1e-6, atol=0):
+            raise AssertionError("neighbours differ off fp64 ties")
+    return rows.numel()
+
+
+def bf16_first_iterations(xb, k, c0, d):
+    """The Lloyd loop over one and over ``d`` logical shards of card 0
+    from the start ``c0``, two iterations each.  The first assignment
+    depends only on each row and ``c0``: it must be bitwise one shard's,
+    and so the first update's counts; its centroids differ by the order of
+    the fp32 sums only (rtol 1e-5).  The second iteration scores against
+    those centroids rounded to bf16: every row where it differs must have
+    a cluster whose bf16 panel row differs between the two (a last bit of
+    the sums crossing a bf16 rounding boundary) among its candidates (its
+    two assignments and the best 4 plain scores against either panel: a
+    moved row can push another into or out of the kernel's top 2), or be
+    a near-tie.  Returns a summary."""
+    L2 = D.DistanceMetric.L2
+    steps = {}
+    for shards in (1, d):
+        p = prepare(xb, k, L2, Topology([torch.device("cuda", 0)] * shards),
+                    Logger(0))
+        loop = A.lloyd_run(p.xs, p.valids, p.assign0s, c0, n_clusters=k,
+                           metric=L2)
+        steps[shards] = [next(loop) for _ in range(2)]
+        loop.close()
+        del p, loop
+    one, many = steps[1], steps[d]
+    if not (torch.equal(torch.cat(one[0].assign), torch.cat(many[0].assign))
+            and torch.equal(one[0].counts, many[0].counts)):
+        raise AssertionError("1M bf16 d=%d: the first assignment is not one "
+                             "shard's" % d)
+    c1, cd = one[0].c_next, many[0].c_next
+    if not torch.allclose(cd, c1, rtol=1e-5, atol=1e-6):
+        raise AssertionError("1M bf16 d=%d: the first update's centroids "
+                             "differ past rtol 1e-5" % d)
+    rel = float(((cd - c1).abs() / c1.abs().clamp(min=1e-6)).max())
+    steps_bf16 = cd.to(torch.bfloat16) != c1.to(torch.bfloat16)
+    moved = steps_bf16.any(dim=1)
+    a1, ad = torch.cat(one[1].assign), torch.cat(many[1].assign)
+    rows = torch.nonzero(a1 != ad)[:, 0]
+    cand = [a1[rows, None].long(), ad[rows, None].long()]
+    ties = torch.zeros(rows.numel(), dtype=torch.bool, device=xb.device)
+    if rows.numel():
+        for c in (c1, cd):
+            panel, c_sq = pad_clusters(c, xb.dtype)
+            cand.append(torch.topk(D.scores(xb[rows], panel.T, c_sq, L2), 4,
+                                   dim=1, largest=False).indices)
+            ties |= K.near_ties(xb[rows], c, L2)
+    touch = moved[torch.cat(cand, dim=1)].any(dim=1)
+    if bool((~touch & ~ties).any()):
+        raise AssertionError("1M bf16 d=%d: %d second-iteration rows differ "
+                             "with neither a moved panel row among their "
+                             "candidates nor a tie"
+                             % (d, int((~touch & ~ties).sum())))
+    return ("first assignment and counts bitwise one shard's, first "
+            "centroids within %.3g relative; second iteration: %d panel "
+            "entries in %d clusters round to another bf16 value, %d rows "
+            "differ (%d with one of those clusters among their candidates, %d "
+            "near-ties)"
+            % (rel, int(steps_bf16.sum()), int(moved.sum()), rows.numel(),
+               int(touch.sum()), int((~touch & ties).sum())))
+
+
+def multidevice_phase(tag, x):
+    """The public calls over 1, 2 and 4 logical shards of card 0 (the
+    shard loop, the fixed-order reductions and the per-shard kernel
+    launches; not peer copies between cards): Lloyd at the headline and
+    the default call on its data, 1M x 256 bf16 Lloyd, and kNN at 1M x 256
+    fp32 16-NN; then, with several cards, the same calls over them.
+    Returns the phase's launch counts; fails unless each of B1, B2 and B3
+    was launched."""
+    k = HEADLINE["k"]
+    L2 = D.DistanceMetric.L2
+    counts = {name: 0 for name in _launches()}
+    walls = {}
+
+    def run(label, fn, d):
+        out, log, wall, launches = sharded(fn, d)
+        for name, count in launches.items():
+            counts[name] += count
+        walls.setdefault(label, {}).setdefault(d, []).append(wall)
+        return out, log
+
+    def kmeans(data, kw):
+        return lambda mask: kmeans_cuda(data, k, device=mask, **kw)
+
+    # Lloyd at the headline (random init: one start for every d)
+    kw = dict(init="random", seed=1, tolerance=0.002, yinyang_t=0,
+              max_iterations=15, verbosity=2)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        today = (kmeans_cuda(x, k, **kw), buf.getvalue())
+    lloyd = {d: run("headline Lloyd", kmeans(x, kw), d)
+             for d in SHARD_COUNTS}
+    again = run("headline Lloyd", kmeans(x, kw), 4)
+    check_repeat("headline d=1 against the call without a mask", today,
+                 lloyd[1])
+    check_repeat("headline d=4", lloyd[4], again)
+    empty, ties = check_result(x, k, *lloyd[4][0], L2)
+    print("multidevice headline Lloyd 100000x256 fp32 k=1024: d=1 bitwise "
+          "the call without a mask; d=4 repeats bitwise; d=4 final "
+          "assignment is the argmin (%d empty clusters, %d near-tie rows "
+          "differ); against d=1: d=2 %s; d=4 %s"
+          % (empty, ties, check_count_contract("headline d=2", lloyd[1],
+                                               lloyd[2]),
+             check_count_contract("headline d=4", lloyd[1], lloyd[4])),
+          flush=True)
+
+    # the default call (k-means++, Yinyang) on the same data
+    picks = {}
+    for d in SHARD_COUNTS:
+        p = prepare(x, k, L2, Topology([torch.device("cuda", 0)] * d),
+                    Logger(0))
+        picks[d] = I.init_centroids(p, I.InitMethod.PLUS_PLUS, 1)
+        del p
+    same_picks = {d: int((picks[d] == picks[1]).all(dim=1).sum())
+                  for d in (2, 4)}
+    if min(same_picks.values()) != k:
+        raise AssertionError("k-means++ picks differ across shard counts: "
+                             "%s of %d" % (same_picks, k))
+    dkw = dict(seed=1, tolerance=0.002, max_iterations=60)
+    default = {d: run("default call", kmeans(x, dict(dkw, verbosity=2)), d)
+               for d in SHARD_COUNTS[:2]}
+    with logical_shards(4) as mask:
+        yy, yy_log, yy_n, ll_n = yinyang_vs_lloyd(
+            "default call 100000x256 fp32 k=1024 on 4 logical shards", x, k,
+            L2, device=mask, **dkw)
+    for launches in (yy_n, ll_n):
+        for name, count in launches.items():
+            counts[name] += count
+    default[4] = (yy, yy_log)
+    check_repeat("default call d=4", default[4],
+                 run("default call", kmeans(x, dict(dkw, verbosity=2)), 4))
+    # d=2 from the same start over the first iterations, where the
+    # contract is tight; the whole run parts later (PERF.md section 6)
+    early_kw = dict(dkw, init=picks[1], max_iterations=4, verbosity=2)
+    early = {d: run("default call, 4 iterations", kmeans(x, early_kw), d)
+             for d in (1, 2)}
+    print("multidevice default call 100000x256 fp32 k=1024: k-means++ picks "
+          "equal to d=1's at d=2 and d=4 (%d of %d rows); d=4 repeats "
+          "bitwise; Yinyang == Lloyd bitwise at d=4; against d=1: d=4 %s; "
+          "d=2 over its first 4 iterations from the same start %s; d=2 "
+          "whole run %s"
+          % (min(same_picks.values()), k,
+             check_count_contract("default d=4", default[1], default[4]),
+             check_count_contract("default d=2, 4 iterations", early[1],
+                                  early[2]),
+             check_iteration_counts("default d=2", default[1], default[2])),
+          flush=True)
+    del picks, lloyd, again, default, yy, early
+
+    # 1M x 256 bf16 Lloyd
+    g = torch.Generator(device="cuda").manual_seed(0)
+    xb = torch.rand(BF16_RUN["n"], BF16_RUN["f"], generator=g,
+                    device="cuda").to(torch.bfloat16)
+    bkw = dict(kw, max_iterations=10)
+    bf = {d: run("1M bf16 Lloyd", kmeans(xb, bkw), d) for d in SHARD_COUNTS}
+    check_repeat("1M bf16 d=4", bf[4], run("1M bf16 Lloyd", kmeans(xb, bkw),
+                                            4))
+    with logical_shards(4) as mask:
+        empty, ties = check_result(xb, k, *bf[4][0], L2, device=mask)
+    c0 = xb[torch.randperm(xb.shape[0], generator=I.generator(1))[:k]
+            .cuda()].float()
+    first = {d: run("1M bf16 first iteration", kmeans(
+        xb, dict(init=c0, tolerance=0.0, yinyang_t=0, max_iterations=1)), d)
+        for d in (1, 4)}
+    if not torch.equal(first[1][0][1], first[4][0][1]):
+        raise AssertionError("1M bf16 d=4: the public call's first "
+                             "assignment is not one shard's")
+    print("multidevice 1000000x256 bf16 k=1024, 10 iterations: d=4 repeats "
+          "bitwise; d=4 final assignment, restarted on 4 shards, is the "
+          "argmin (%d empty clusters, %d near-tie rows differ); from one "
+          "start, the public call's first assignment at d=4 is bitwise "
+          "d=1's; the loop at d=4 against d=1: %s; after 10 iterations "
+          "assignments that differ from d=1's: d=2 %d, d=4 %d"
+          % (empty, ties, bf16_first_iterations(xb, k, c0, 4),
+             int((bf[2][0][1] != bf[1][0][1]).sum()),
+             int((bf[4][0][1] != bf[1][0][1]).sum())), flush=True)
+    del xb, bf, first
+
+    # kNN at the JAX bench's configuration, the smoke's blob clusters
+    b = KNN_BENCH
+    xk, centers = blobs_on_card(b["n"], b["f"], b["k"], 11)
+    c, a = cluster(xk, centers, L2)
+    knn = {}
+    for d, verbosity in ((1, 1), (2, 1), (4, 2), (4, 1)):
+        knn[d] = run("kNN 1M 16-NN", lambda mask: knn_cuda(
+            b["kn"], xk, c, a, device=mask, verbosity=verbosity), d)
+    frac = {d: fraction(knn[d][1]) for d in SHARD_COUNTS}
+    ties = {d: neighbour_ties(xk, knn[d][0], knn[1][0]) for d in (2, 4)}
+    equal_rows = int((knn[4][0] == knn[1][0]).all(dim=1).sum())
+    recall, tie_recall = check_recall(xk, knn[4][0], b["kn"])
+    if tie_recall != 1.0:
+        raise AssertionError("kNN d=4: tie-aware recall %.6f != 1"
+                             % tie_recall)
+    print("multidevice kNN 1000000x256 fp32 k=1024 16-NN: d=4 neighbours "
+          "bitwise equal to d=1's on %d of %d rows, the rest fp64 ties (d=2: "
+          "%d tie rows, d=4: %d); examined fraction d=1 %.6f, d=2 %.6f, d=4 "
+          "%.6f; d=4 recall@16 %.6f, tie-aware recall@16 %.6f on 1024 "
+          "queries" % (equal_rows, b["n"], ties[2], ties[4], frac[1],
+                       frac[2], frac[4], recall, tie_recall), flush=True)
+    del knn
+    for name, count in counts.items():
+        if count == 0:
+            raise AssertionError("multidevice phase: %s never launched"
+                                 % name)
+
+    print("%s multidevice walls on logical shards of one card (the shard "
+          "loop and its reductions, not a multi-GPU speed-up): %s; "
+          "launches %s" % (tag, "; ".join(
+              "%s %s" % (label, ", ".join(
+                  "d=%d %.4f s" % (d, min(ws)) + (
+                      " (min of %d)" % len(ws) if len(ws) > 1 else "")
+                  for d, ws in sorted(per_d.items())))
+              for label, per_d in walls.items()), counts), flush=True)
+
+    if torch.cuda.device_count() > 1:
+        real_devices_phase(tag, x, xk, c, a, today)
+    else:
+        print("multidevice over real devices: not run (this host has one "
+              "CUDA device)", flush=True)
+    return counts
+
+
+def real_devices_phase(tag, x, xk, c, a, one):
+    """Numpy input with mask 0 over every card of the host: the headline
+    Lloyd call twice (bitwise repeat, argmin, the contract against the
+    one-card call ``one``, ((centroids, assignments), log)) and the kNN
+    call against one card's."""
+    k = HEADLINE["k"]
+    n_dev = torch.cuda.device_count()
+    kw = dict(init="random", seed=1, tolerance=0.002, yinyang_t=0,
+              max_iterations=15, verbosity=2)
+    xn = x.cpu().numpy()
+    runs = []
+    for _ in range(2):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            t = time.perf_counter()
+            cn, an = kmeans_cuda(xn, k, device=0, **kw)
+            wall = time.perf_counter() - t
+        log = buf.getvalue()
+        if len([l for l in log.splitlines() if l.startswith("plan: ")]) \
+                != n_dev:
+            raise AssertionError("real devices: not one plan line per card")
+        runs.append(((torch.from_numpy(cn).cuda(),
+                      torch.from_numpy(an.astype(np.int32)).cuda()), log,
+                     wall))
+    check_repeat("real devices", runs[0][:2], runs[1][:2])
+    empty, ties = check_result(x, k, *runs[0][0], D.DistanceMetric.L2)
+    contract = check_count_contract("real devices", one, runs[0][:2])
+    nb1 = knn_cuda(KNN_BENCH["kn"], xk, c, a).cpu()
+    t = time.perf_counter()
+    nbn = knn_cuda(KNN_BENCH["kn"], xk.cpu().numpy(), c.cpu().numpy(),
+                   a.cpu().numpy().astype(np.uint32), device=0)
+    knn_wall = time.perf_counter() - t
+    tie_rows = neighbour_ties(xk.cpu(), torch.from_numpy(
+        nbn.astype(np.int64)).to(torch.int32), nb1)
+    print("%s multidevice over %d real devices (numpy input, mask 0): "
+          "headline Lloyd walls %.4f / %.4f s, repeats bitwise, argmin (%d "
+          "empty clusters, %d near-tie rows differ), against one card: %s; "
+          "kNN 1M 16-NN %.4f s, %d fp64 tie rows against one card"
+          % (tag, n_dev, runs[0][2], runs[1][2], empty, ties, contract,
+             knn_wall, tie_rows), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""libKMTPU on PyTorch and CUDA: the port of ``kmcuda_tpu`` to one GPU.
+"""libKMTPU on PyTorch and CUDA: the port of ``kmcuda_tpu`` to NVIDIA GPUs.
 
 The same call shape as ``kmcuda_tpu`` and the reference kmcuda binding:
 :func:`kmeans_torch` (alias ``kmeans_cuda``) and :func:`knn_torch` (alias
@@ -6,8 +6,8 @@ The same call shape as ``kmcuda_tpu`` and the reference kmcuda binding:
 random or imported init) and the pruned exact kNN run through
 hand-written CUDA kernels (``csrc/assign.cu``, ``csrc/knn_walk.cu``, built
 with ``nvcc`` at first use) on a CUDA tensor, and through their plain-torch
-twins on a CPU tensor.  A device mask that selects several devices raises
-``NotImplementedError`` naming its ROADMAP item.
+twins on a CPU tensor.  A device mask that selects several devices
+splits the samples' rows over them (``parallel.devices``).
 """
 
 from kmcuda_torch.utils.errors import (

@@ -12,21 +12,27 @@ The call shape of ``kmcuda_tpu.api`` and of the reference binding:
               verbosity=0, donate_samples=False)
         -> neighbors
 
-Devices are explicit, with no fallback:
+Devices are explicit, with no fallback (``parallel.devices.topology_for``):
 - a ``torch.Tensor`` runs on its own device and comes back as tensors on
   that device (centroids fp32, or the input dtype for fp16/bf16 input;
   assignments and neighbours ``torch.int32``, because torch has almost no
-  uint32 arithmetic; a neighbour row of a non-finite sample is -1);
-- a numpy array runs on the CUDA device the ``device`` bitmask selects and
-  comes back as numpy (assignments and neighbours ``uint32``, the
-  neighbour sentinel 0xFFFFFFFF); with no CUDA device it raises
-  :class:`KMTPUNoSuchDevice`.
+  uint32 arithmetic; a neighbour row of a non-finite sample is -1); a
+  ``device`` bitmask that selects several devices scatters its rows over
+  them, and the results still come back on the tensor's device;
+- a numpy array runs on the CUDA devices the ``device`` bitmask selects
+  (0 = all of them) and comes back as numpy (assignments and neighbours
+  ``uint32``, the neighbour sentinel 0xFFFFFFFF); with no CUDA device it
+  raises :class:`KMTPUNoSuchDevice`.
+
+Over several devices one process drives them all: the samples are cut
+into contiguous row shards, one per device, and the sums and counts are
+added on the first device in shard order, so a call repeats bitwise on a
+given device set.
 
 Ported: Lloyd and Yinyang with random, k-means++, AFK-MC2 or imported
 init, and the pruned exact kNN, for L2 and angular, fp32 and fp16/bf16
 input (bf16 storage, fp32 accumulation).  ``KMTPU_PROFILE=<dir>`` traces
-the compute span of either call (``utils.profiling``).  A device mask that
-selects several devices raises ``NotImplementedError`` (ROADMAP §A7).
+the compute span of either call (``utils.profiling``).
 """
 
 import time
@@ -41,7 +47,7 @@ from kmcuda_torch.models import lloyd as L
 from kmcuda_torch.models import yinyang as Y
 from kmcuda_torch.models.problem import prepare
 from kmcuda_torch.ops.distance import DistanceMetric, disable_tf32, metrics
-from kmcuda_torch.parallel.devices import device_for, memory_report
+from kmcuda_torch.parallel.devices import topology_for
 from kmcuda_torch.utils import validation as V
 from kmcuda_torch.utils.errors import KMTPUInvalidArguments
 from kmcuda_torch.utils.logging import Logger
@@ -89,11 +95,17 @@ def _parse_init(init):
     raise TypeError("init must be a string, tuple or array, got %r" % (init,))
 
 
+def _tf32_off(topo) -> None:
+    """A call on CUDA devices runs its products with TF32 off."""
+    if any(d.type == "cuda" for d in topo.devices):
+        disable_tf32()
+
+
 def _check_cosine(problem):
     """Probe 3 samples for unit norm, like the reference."""
     n = problem.n
-    idx = sorted({0, n // 2, n - 1})
-    probe = problem.x_sq[idx].cpu().numpy()
+    idx = torch.tensor(sorted({0, n // 2, n - 1}))
+    probe = problem.take(problem.x_sqs, idx).cpu().numpy()
     if not V.check_cosine_normalized(probe):
         raise KMTPUInvalidArguments(
             "the angular distance metric requires samples to be normalized "
@@ -114,11 +126,11 @@ def kmeans_torch(samples, clusters, tolerance=0.01, init="k-means++",
     metric_e = _parse_metric(metric)
     init_e, afkmc2_m, imported = _parse_init(init)
     logger = Logger(verbosity)
-    dev = device_for(samples, int(device), logger)
-    if dev.type == "cuda":
-        disable_tf32()
-    problem = prepare(samples, k, metric_e, dev, logger,
+    topo = topology_for(samples, int(device), logger)
+    _tf32_off(topo)
+    problem = prepare(samples, k, metric_e, topo, logger,
                       donate=bool(donate_samples))
+    topo = problem.topo
     if metric_e == DistanceMetric.COSINE:
         _check_cosine(problem)
     if problem.n_valid < k:
@@ -129,14 +141,14 @@ def kmeans_torch(samples, clusters, tolerance=0.01, init="k-means++",
 
     # the profiler window covers init, iterations and average distance, the
     # span the reference brackets with cudaProfilerStart/Stop
-    with profile_window(logger, dev):
+    with profile_window(logger, topo.leader):
         centroids = I.init_centroids(problem, init_e, seed,
                                      afkmc2_m=afkmc2_m, imported=imported)
         assignments = L.new_assignments(problem)
         if verbosity > 1:
-            # the memory line once the working set is resident, where the
+            # the memory lines once the working set is resident, where the
             # JAX package prints its per-device memory stats
-            for line in memory_report(dev):
+            for line in topo.memory_report():
                 logger.debug(line)
         groups = int(yinyang_t * k)
         if groups > 0 and tolerance < config.YINYANG_MIN_TOLERANCE:
@@ -152,15 +164,15 @@ def kmeans_torch(samples, clusters, tolerance=0.01, init="k-means++",
               if average_distance else None)
 
     if isinstance(samples, torch.Tensor):
-        out_c = centroids
+        out_c = centroids.to(samples.device)
         if problem.dtype == torch.bfloat16:
             out_c = out_c.to(samples.dtype)
-        out_a = assignments
+        out_a = topo.gather(assignments, samples.device)
     else:
         out_c = centroids.cpu().numpy()
         if problem.dtype == torch.bfloat16:
             out_c = out_c.astype(samples.dtype)
-        out_a = assignments.cpu().numpy().astype(np.uint32)
+        out_a = topo.gather(assignments, "cpu").numpy().astype(np.uint32)
     if not average_distance:
         return out_c, out_a
     return out_c, out_a, ad
@@ -187,11 +199,12 @@ def knn_torch(k, samples, centroids, assignments, metric="L2", device=0,
         k, samples, centroids, assignments, device)
     metric_e = _parse_metric(metric)
     logger = Logger(verbosity)
-    dev = device_for(samples, int(device), logger)
-    if dev.type == "cuda":
-        disable_tf32()
-    problem = prepare(samples, n_clusters, metric_e, dev, logger,
+    topo = topology_for(samples, int(device), logger)
+    _tf32_off(topo)
+    problem = prepare(samples, n_clusters, metric_e, topo, logger,
                       donate=bool(donate_samples))
+    topo = problem.topo
+    dev = topo.leader
     if metric_e == DistanceMetric.COSINE:
         _check_cosine(problem)
     if isinstance(centroids, torch.Tensor):
@@ -200,11 +213,11 @@ def knn_torch(k, samples, centroids, assignments, metric="L2", device=0,
         cents = torch.tensor(np.asarray(centroids, dtype=np.float32),
                              device=dev)
     if verbosity > 1:
-        for line in memory_report(dev):
+        for line in topo.memory_report():
             logger.debug(line)
     with profile_window(logger, dev):
         nbr, _dist = KNN.run(problem, cents,
                              _knn_assignments(assignments, dev), k)
     if isinstance(samples, torch.Tensor):
-        return nbr
+        return nbr.to(samples.device)
     return nbr.cpu().numpy().astype(np.uint32)

@@ -11,9 +11,9 @@ tuples are those of ``kmcuda_tpu.capi``, so the two shims share
 ``KMTPU_PLATFORM`` picks where a call runs:
 
 - unset or ``cuda``: host buffers go in as numpy arrays, which the public
-  API runs on the CUDA device the ``device`` mask selects; with no CUDA
-  device the call returns ``kmtpuNoSuchDevice``.  There is no CPU
-  fallback.
+  API runs on the CUDA devices the ``device`` mask selects (0 = all, the
+  rows split over them); with no CUDA device the call returns
+  ``kmtpuNoSuchDevice``.  There is no CPU fallback.
 - ``cpu``: the caller asked for the CPU.  Host buffers are wrapped as CPU
   tensors (``torch.from_numpy``), and handles hold CPU tensors.
 - anything else: ``kmtpuInvalidArguments``, with a message on stderr.
@@ -181,6 +181,11 @@ def _register(tensor: torch.Tensor) -> int:
 
 
 def _cuda_device() -> torch.device:
+    """Where an upload lives: the current CUDA device (device 0, the first
+    device mask 0 selects, unless the caller set another).  A call on
+    handles with a mask that selects several devices (mask 0 on a host
+    with several) scatters the rows over them and returns its handles on
+    this device."""
     if not torch.cuda.is_available():
         raise KMTPUNoSuchDevice("no CUDA device exists; set "
                                 "KMTPU_PLATFORM=cpu to run on the CPU")
@@ -240,13 +245,23 @@ def release_handle(handle):
             else int(KMTPUResult.INVALID_ARGUMENTS))
 
 
+def _handle_mask(device: int, on_cpu: bool) -> int:
+    """The mask a call on handles runs with.  Mask 0 names every CUDA
+    device explicitly, so a handle (a tensor, which mask 0 would keep on
+    its own device) is cut over the devices the pointer path cuts host
+    buffers over, and both paths give one result."""
+    if device == 0 and not on_cpu:
+        return (1 << torch.cuda.device_count()) - 1
+    return device
+
+
 def kmeans_from_handles(init, afkmc2_m, tolerance, yinyang_t, metric,
                         clusters_size, seed, device, verbosity,
                         samples_handle, import_handle, want_average):
     """Device-resident k-means.  Returns (code, centroids_handle,
     assignments_handle, average_distance)."""
     try:
-        _on_cpu()
+        mask = _handle_mask(int(device), _on_cpu())
         samples = _handles.get(int(samples_handle))
         imported = _handles.get(int(import_handle))
         if samples is None:
@@ -258,7 +273,7 @@ def kmeans_from_handles(init, afkmc2_m, tolerance, yinyang_t, metric,
             samples, int(clusters_size), tolerance=float(tolerance),
             init=init_arg, yinyang_t=float(yinyang_t), metric=int(metric),
             average_distance=bool(want_average), seed=int(seed),
-            device=int(device), verbosity=int(verbosity))
+            device=mask, verbosity=int(verbosity))
         avg = float(res[2]) if want_average else 0.0
         return (int(KMTPUResult.SUCCESS), _register(res[0]),
                 _register(res[1]), avg)
@@ -270,14 +285,14 @@ def knn_from_handles(k, metric, device, verbosity, samples_handle,
                      centroids_handle, assignments_handle):
     """Device-resident k-nn.  Returns (code, neighbors_handle)."""
     try:
-        _on_cpu()
+        mask = _handle_mask(int(device), _on_cpu())
         samples = _handles.get(int(samples_handle))
         centroids = _handles.get(int(centroids_handle))
         assignments = _handles.get(int(assignments_handle))
         if samples is None or centroids is None or assignments is None:
             return int(KMTPUResult.INVALID_ARGUMENTS), 0
         nbr = knn_torch(int(k), samples, centroids, assignments,
-                        metric=int(metric), device=int(device),
+                        metric=int(metric), device=mask,
                         verbosity=int(verbosity))
         return int(KMTPUResult.SUCCESS), _register(nbr)
     except Exception as exc:  # noqa: BLE001

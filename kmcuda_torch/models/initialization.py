@@ -6,7 +6,9 @@ the same numbers; they cannot reproduce the JAX package's ``jax.random``
 draws, only their distributions.  The uniforms (and AFK-MC2's candidate
 ids) are drawn up front and moved to the device once, and the loops over
 the k centroids never read a device value back, except for a progress
-line.
+line.  Over several row shards the distances are computed on their
+shards and each draw reads them on the leader, so the draws are those of
+one device whenever the shards' distances are.
 
 - random: k distinct *valid* rows, uniformly.
 - k-means++: each step draws a row with probability proportional to its
@@ -55,6 +57,7 @@ def generator(seed: int) -> torch.Generator:
 
 
 def _imported(problem, imported) -> torch.Tensor:
+    """The caller's centroids on the leader, which broadcasts them."""
     if isinstance(imported, torch.Tensor):
         cent = imported.to(device=problem.device, dtype=torch.float32)
     else:
@@ -68,9 +71,11 @@ def _imported(problem, imported) -> torch.Tensor:
 
 
 def _random(problem, gen) -> torch.Tensor:
-    rows = torch.nonzero(problem.valid.cpu()).squeeze(1)
-    pick = torch.randperm(rows.numel(), generator=gen)[:problem.k]
-    return problem.x[rows[pick].to(problem.device)].float()
+    p = problem
+    valid = torch.cat([v.cpu() for v in p.valids])
+    rows = torch.nonzero(valid).squeeze(1)
+    pick = torch.randperm(rows.numel(), generator=gen)[:p.k]
+    return p.take(p.xs, rows[pick]).float()
 
 
 def _draw_block_size(n: int) -> int:
@@ -125,35 +130,48 @@ def _progress(problem, label: str, done: int, k: int) -> None:
         return
     if (done - 1) % seg and done != k:
         return
-    if problem.device.type == "cuda":
-        torch.cuda.synchronize(problem.device)
+    problem.topo.synchronize()
     problem.logger.info("%s: %d / %d centroids" % (label, done, k))
 
 
-def _row(x, idx) -> torch.Tensor:
-    """(1, F) fp32 copy of row ``idx`` ((1,) tensor), with no host sync."""
-    return x.index_select(0, idx).float()
+def _row(problem, idx) -> torch.Tensor:
+    """(1, F) fp32 copy of sample ``idx`` ((1,) tensor), on the leader,
+    with no host sync."""
+    return problem.take(problem.xs, idx).float()
 
 
 def _init_plus_plus(problem, gen) -> torch.Tensor:
-    """k-means++ over the problem's valid rows; (k, F) fp32."""
+    """k-means++ over the problem's valid rows; (k, F) fp32 on the
+    leader.  Each shard keeps its running minimum distance; the draw runs
+    on the leader over one (n,) buffer of them, of which a shard on the
+    leader's device holds a view (updated in place) and any other shard a
+    copy (refreshed after each update)."""
     p = problem
     k = p.k
     us = torch.rand(k, generator=gen).to(p.device)
-    validf = p.valid.float()
+    validf = p.topo.gather(p.valids).float()
     cent = torch.empty((k, p.features), dtype=torch.float32, device=p.device)
-    cent[0:1] = _row(p.x, _weighted_draw(validf, us[0:1]))
-    # invalid rows start at 0 and the minimum keeps them there
-    mindist = torch.where(p.valid, D.point_distances(p.x, p.x_sq, cent[0],
-                                                     p.metric), 0.0)
+    cent[0:1] = _row(p, _weighted_draw(validf, us[0:1]))
+    weights = torch.empty(p.n, dtype=torch.float32, device=p.device)
+    mindists = []
+    for s, c in zip(p.shards, p.topo.broadcast(cent[0])):
+        # invalid rows start at 0 and the minimum keeps them there
+        m = torch.where(s.valid, D.point_distances(s.x, s.x_sq, c, p.metric),
+                        0.0)
+        own = weights[s.start:s.stop].copy_(m)
+        mindists.append((own, own if s.x.device == p.device else m))
     for i in range(1, k):
         # every valid row already chosen (fewer distinct rows than k): draw
         # among the valid rows instead of the all-zero weights
-        w = torch.where(mindist.sum() > 0, mindist, validf)
-        cent[i:i + 1] = _row(p.x, _weighted_draw(w, us[i:i + 1]))
+        w = torch.where(weights.sum() > 0, weights, validf)
+        cent[i:i + 1] = _row(p, _weighted_draw(w, us[i:i + 1]))
         if i + 1 < k:
-            mindist = torch.minimum(mindist, D.point_distances(
-                p.x, p.x_sq, cent[i], p.metric))
+            for s, (own, m), c in zip(p.shards, mindists,
+                                      p.topo.broadcast(cent[i])):
+                torch.minimum(m, D.point_distances(s.x, s.x_sq, c, p.metric),
+                              out=m)
+                if m is not own:
+                    own.copy_(m)
         _progress(p, "kmeans++", i + 1, k)
     return cent
 
@@ -189,15 +207,19 @@ def mh_chain(prob, u):
 
 
 def _init_afkmc2(problem, m: int, gen) -> torch.Tensor:
-    """AFK-MC2 over the problem's valid rows; (k, F) fp32."""
+    """AFK-MC2 over the problem's valid rows; (k, F) fp32 on the leader.
+    The first centroid's distances are computed on their shards, q on the
+    leader over the gathered ones; each step gathers its m candidates."""
     p = problem
     k = p.k
-    validf = p.valid.float()
+    validf = p.topo.gather(p.valids).float()
     cent = torch.zeros((k, p.features), dtype=torch.float32, device=p.device)
-    cent[0:1] = _row(p.x, _weighted_draw(
+    cent[0:1] = _row(p, _weighted_draw(
         validf, torch.rand(1, generator=gen).to(p.device)))
-    d0 = torch.where(p.valid, D.point_distances(p.x, p.x_sq, cent[0],
-                                                p.metric), 0.0)
+    d0 = p.topo.gather([
+        torch.where(v, D.point_distances(x, xsq, c, p.metric), 0.0)
+        for x, xsq, v, c in zip(p.xs, p.x_sqs, p.valids,
+                                p.topo.broadcast(cent[0]))])
     d0_sq = d0 * d0
     total = torch.clamp(d0_sq.sum(), min=torch.finfo(torch.float32).tiny)
     q = d0_sq / (2.0 * total) + validf * (0.5 / p.n_valid)
@@ -207,15 +229,17 @@ def _init_afkmc2(problem, m: int, gen) -> torch.Tensor:
     slot = torch.arange(k, device=p.device)
     for i in range(1, k):
         cand_idx = ids[i - 1]
-        cand = p.x.index_select(0, cand_idx)
+        cand = p.take(p.xs, cand_idx)
         # min distance of each candidate to the i chosen centroids; the
         # penalty masks the unfilled rows of the buffer
         pen = torch.where(slot < i, 0.0, config.PAD_PENALTY)
-        s = D.scores(cand, cent.to(p.x.dtype).T, D.row_sq_norms(cent),
+        s = D.scores(cand, cent.to(p.dtype).T, D.row_sq_norms(cent),
                      p.metric) + pen[None, :]
-        dmin = D.finalize_distance(s.amin(1), p.x_sq[cand_idx], p.metric)
+        dmin = D.finalize_distance(s.amin(1), p.take(p.x_sqs, cand_idx),
+                                   p.metric)
         prob = dmin * dmin / q[cand_idx]
-        cent[i:i + 1] = _row(p.x, cand_idx[mh_chain(prob, us[i - 1])])
+        cent[i:i + 1] = cand.index_select(0, mh_chain(
+            prob, us[i - 1])).float()
         _progress(p, "afkmc2", i + 1, k)
     return cent
 

@@ -13,6 +13,13 @@ or fewer than 2 * LANE samples.
 
 Nothing is padded: n_pad == n.  (The JAX package pads n to its device
 mesh, which changes the layout's sizes but not the neighbours.)
+
+Over row shards the plan is built on the leader from the gathered rows,
+replicated to every shard's device, and the query chunks are cut into
+contiguous per-shard ranges; each device searches its own range, and the
+results are gathered to the leader in shard order.  A chunk's walk and
+rescore do not depend on the other chunks, so the neighbours do not
+depend on the cut.
 """
 
 import time
@@ -196,7 +203,9 @@ class SearchPlan(typing.NamedTuple):
 
 
 def plan_pruned(p, centroids, assignments) -> SearchPlan:
-    """Lay out the packed search structures: relabel, sort, pack, radii.
+    """Lay out the packed search structures: relabel, sort, pack, radii,
+    on the leader from the problem's gathered rows (``assignments`` a
+    whole (n,) tensor).
 
     The layout holds the sorted rows plus at least one whole filler tile
     (the grouped walk's tail re-visits tile n_tiles - 1, which must hold
@@ -208,24 +217,33 @@ def plan_pruned(p, centroids, assignments) -> SearchPlan:
     n_tiles = m_total // tile_m
     group = max(1, min(config.KNN_TILE_GROUP_ROWS // tile_m,
                        max(1, n_tiles // 16)))
-    cents = centroids.float()
+    x, valid = p.topo.gather(p.xs), p.topo.gather(p.valids)
+    cents = centroids.float().to(p.device)
+    assignments = assignments.to(p.device)
     if p.k <= config.KNN_TOUR_MAX_K:
-        a, cd = _sanitize_and_cd(p.valid, assignments, cents,
+        a, cd = _sanitize_and_cd(valid, assignments, cents,
                                  n_clusters=p.k, metric=p.metric)
         b, sorder, perm = _tour_relabel(a, cd)
     else:
-        a = _sanitize_assign(p.valid, assignments, n_clusters=p.k)
+        a = _sanitize_assign(valid, assignments, n_clusters=p.k)
         b, sorder, perm = _proj_relabel(a, cents)
     b_sorted = b[sorder]
     inc_c, inc_t, tile_nvalid = KP.packed_layout(
         b_sorted, k=p.k, tile_m=tile_m, n_tiles=n_tiles)
-    xm, m_spos, q_assign = _pack_members(p.x, sorder, b_sorted, k=p.k,
+    xm, m_spos, q_assign = _pack_members(x, sorder, b_sorted, k=p.k,
                                          m_total=m_total)
     c_rank = cents[perm]
     radii = _radii(xm, q_assign, c_rank, k=p.k, metric=p.metric)
     return SearchPlan(tile_m, q_chunk, n_tiles, m_total, group, xm, m_spos,
                       q_assign, radii, c_rank, inc_c, inc_t, tile_nvalid,
                       sorder)
+
+
+def plan_on(plan: SearchPlan, device) -> SearchPlan:
+    """The plan with its tables on ``device`` (a peer copy, or the plan
+    itself on its own device)."""
+    return SearchPlan(*(f.to(device) if isinstance(f, torch.Tensor) else f
+                        for f in plan))
 
 
 def orig_positions(plan: SearchPlan) -> torch.Tensor:
@@ -273,63 +291,70 @@ def batch_walk_inputs(plan: SearchPlan, chunk_base: int,
                                       n_clusters, metric))
 
 
-def _sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def run(problem, centroids, assignments, k_neighbors: int):
     """k-NN of every sample, pruned by the k-means structure.  Returns
-    (neighbors (n, k) int32, -1 for invalid rows; distances (n, k) fp32).
+    (neighbors (n, k) int32, -1 for invalid rows; distances (n, k) fp32),
+    on the leader.
     """
     p = problem
+    valid = p.topo.gather(p.valids)
     if centroids is None or p.k < 2 or p.n < 2 * config.LANE:
-        nbr, dist = _search(p.x, p.x_sq, p.x, p.valid, k=k_neighbors,
-                            metric=p.metric, tile_m=config.KNN_TILE_M)
+        x = p.topo.gather(p.xs)
+        nbr, dist = _search(x, p.topo.gather(p.x_sqs), x, valid,
+                            k=k_neighbors, metric=p.metric,
+                            tile_m=config.KNN_TILE_M)
         p.logger.info("calculated 1.000000 of all the distances")
         return nbr, dist
 
     t0 = time.perf_counter()
     plan = plan_pruned(p, centroids, assignments)
-    sq = D.row_sq_norms(plan.xm)
-    orig_pos = orig_positions(plan)
     nchunks = plan.m_total // plan.q_chunk
     k_batch = min(nchunks, max(1, config.KNN_QUERY_BATCH // plan.q_chunk))
-    n_batches = -(-nchunks // k_batch)
+    # each shard searches a contiguous range of query chunks on its device,
+    # over its replica of the plan
+    ranges = p.topo.split(nchunks)
+    replicas = {}
+    for dev in p.topo.devices[:len(ranges)]:
+        if dev not in replicas:
+            rp = plan_on(plan, dev)
+            replicas[dev] = (rp, D.row_sq_norms(rp.xm), orig_positions(rp))
+    n_batches = sum(-(-(c1 - c0) // k_batch) for c0, c1 in ranges)
     if p.logger.verbosity > 1:
-        _sync(p.device)
+        p.topo.synchronize()
         p.logger.debug("knn: plan (relabel+pack+radii) %.3f s"
                        % (time.perf_counter() - t0))
     t_search = time.perf_counter()
     parts_n, parts_d, ex_parts = [], [], []
-    for b in range(n_batches):
-        tb = time.perf_counter()
-        base = b * k_batch
-        nbp, dsb, ex = search_batch(
-            plan, base, min(k_batch, nchunks - base),
-            k_neighbors=k_neighbors, n_clusters=p.k, metric=p.metric,
-            xm_sq=sq, orig_pos=orig_pos)
-        parts_n.append(nbp)
-        parts_d.append(dsb)
-        ex_parts.append(ex.sum())
-        if p.logger.verbosity > 1 and n_batches > 1:
-            p.logger.debug("knn: batch %d/%d (%d distances examined, %.3f s)"
-                           % (b + 1, n_batches, int(ex_parts[-1]),
-                              time.perf_counter() - tb))
-    examined = int(torch.stack(ex_parts).sum())
+    for (c0, c1), dev in zip(ranges, p.topo.devices):
+        rp, sq, orig_pos = replicas[dev]
+        for base in range(c0, c1, k_batch):
+            tb = time.perf_counter()
+            nbp, dsb, ex = search_batch(
+                rp, base, min(k_batch, c1 - base), k_neighbors=k_neighbors,
+                n_clusters=p.k, metric=p.metric, xm_sq=sq,
+                orig_pos=orig_pos)
+            parts_n.append(nbp)
+            parts_d.append(dsb)
+            ex_parts.append(ex.sum())
+            if p.logger.verbosity > 1 and n_batches > 1:
+                p.logger.debug(
+                    "knn: batch %d/%d (%d distances examined, %.3f s)"
+                    % (len(ex_parts), n_batches, int(ex_parts[-1]),
+                       time.perf_counter() - tb))
+    # examined counts add as int64: exact in any order
+    examined = int(torch.stack([e.to(p.device) for e in ex_parts]).sum())
     p.logger.debug("knn: search total %.3f s (%d batches)"
                    % (time.perf_counter() - t_search, n_batches))
     frac = examined / float(p.n) ** 2
     # the reference's progress line
     p.logger.info("calculated %f of all the distances" % min(frac, 1.0))
-    return _finalize(parts_n, parts_d, plan.sorder, p.valid)
+    return _finalize(p.topo.gather(parts_n), p.topo.gather(parts_d),
+                     plan.sorder, valid)
 
 
-def _finalize(parts_n, parts_d, sorder, valid):
+def _finalize(nbr, dist, sorder, valid):
     """Packed-order results -> original-order (n, k) outputs; invalid rows
     come out as (-1, +inf)."""
-    nbr = torch.cat(parts_n)
-    dist = torch.cat(parts_d)
     n = sorder.shape[0]
     packed_of_orig = torch.empty_like(sorder)
     packed_of_orig[sorder] = torch.arange(n, device=sorder.device)

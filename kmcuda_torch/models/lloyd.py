@@ -16,6 +16,7 @@ import torch
 from kmcuda_torch import config
 from kmcuda_torch.ops import assign as A
 from kmcuda_torch.ops import distance as D
+from kmcuda_torch.parallel.devices import shaped_like
 
 #: rows per step of the average-distance pass (bounds its gather)
 DISTANCE_CHUNK = 1 << 16
@@ -27,10 +28,11 @@ def _patience() -> int:
     return A.INT32_MAX if p is None else int(p)
 
 
-def new_assignments(problem) -> torch.Tensor:
-    """The 'never assigned' vector (id == k, the invalid marker).  Nothing
-    writes it in place, so the prepared one is shared."""
-    return problem.assign0
+def new_assignments(problem) -> list:
+    """The 'never assigned' vectors (id == k, the invalid marker), one per
+    shard.  Nothing writes them in place, so the prepared ones are
+    shared."""
+    return problem.assign0s
 
 
 class Driver:
@@ -96,40 +98,48 @@ def run(problem, centroids, assignments, tolerance, max_iterations=None,
         iter_offset=0):
     """Iterate Lloyd until reassignments <= tolerance * n.
 
-    Returns (centroids, assignments, best_scores, iterations,
-    last_changed); the centroids are the ones the returned assignments
-    were computed against (the reference also stops before re-adjusting).
+    ``assignments`` is a whole (n,) tensor or a list of per-shard ones;
+    the returned assignments and best scores take its form.  Returns
+    (centroids, assignments, best_scores, iterations, last_changed); the
+    centroids are the ones the returned assignments were computed against
+    (the reference also stops before re-adjusting).
     """
     p = problem
     drv = Driver(p.logger, int(tolerance * p.n), max_iterations, iter_offset)
-    steps = A.lloyd_run(p.x, p.valid, assignments, centroids,
+    steps = A.lloyd_run(p.xs, p.valids, p.per_shard(assignments), centroids,
                         n_clusters=p.k, metric=p.metric)
     step = drive(drv, steps)
     steps.close()
     drv.finish()
-    return step.c_used, step.assign, step.best, drv.done, drv.last
+    return (step.c_used, shaped_like(assignments, step.assign),
+            shaped_like(assignments, step.best), drv.done, drv.last)
 
 
 def mean_assigned_distance(problem, centroids, assignments) -> float:
     """Mean exact distance of the valid samples to their assigned centroid
     (the reference's kmeans_cuda_calc_average_distance), accumulated in
-    fp32."""
+    fp32 per shard, the shards' sums added in shard order on the leader."""
     p = problem
     f = p.features
     zero_row = torch.zeros((1, f), dtype=torch.float32, device=p.device)
-    c_ext = torch.cat([centroids.float(), zero_row])
+    c_ext = torch.cat([centroids.float().to(p.device), zero_row])
     c_sq_ext = torch.sum(c_ext * c_ext, dim=1)
     c_sq_ext[-1] = 0.0
-    acc = torch.zeros((), dtype=torch.float32, device=p.device)
-    for start in range(0, p.n, DISTANCE_CHUNK):
-        end = start + DISTANCE_CHUNK
-        a = assignments[start:end].long()
-        prod = torch.sum(p.x[start:end].float() * c_ext[a], dim=1)
-        if p.metric == D.DistanceMetric.L2:
-            score = c_sq_ext[a] - 2.0 * prod
-        else:
-            score = -prod
-        d = D.finalize_distance(score, p.x_sq[start:end], p.metric)
-        acc = acc + torch.sum(torch.where(p.valid[start:end], d,
-                                          torch.zeros_like(d)))
-    return float(acc / p.n_valid)
+    partials = []
+    for shard, assign in zip(p.shards, p.per_shard(assignments)):
+        dev = shard.x.device
+        c_e, c_sq_e = c_ext.to(dev), c_sq_ext.to(dev)
+        acc = torch.zeros((), dtype=torch.float32, device=dev)
+        for start in range(0, shard.x.shape[0], DISTANCE_CHUNK):
+            end = start + DISTANCE_CHUNK
+            a = assign[start:end].long()
+            prod = torch.sum(shard.x[start:end].float() * c_e[a], dim=1)
+            if p.metric == D.DistanceMetric.L2:
+                score = c_sq_e[a] - 2.0 * prod
+            else:
+                score = -prod
+            d = D.finalize_distance(score, shard.x_sq[start:end], p.metric)
+            acc = acc + torch.sum(torch.where(shard.valid[start:end], d,
+                                              torch.zeros_like(d)))
+        partials.append(acc)
+    return float(p.topo.reduce(partials) / p.n_valid)

@@ -1,10 +1,13 @@
-"""Prepared problem state: upload, storage dtype, NaN hygiene.
+"""Prepared problem state: upload, storage dtype, NaN hygiene, row shards.
 
-The port of ``kmcuda_tpu.models.problem.prepare``.  Rows with any
-non-finite value are marked invalid once and zeroed, so no kernel ever
-sees a NaN; they keep the invalid id k.  fp16 and bf16 input is stored as
-bf16, fp32 and fp64 input as fp32.  Nothing is padded: the kernels mask
-their own ragged edge, so the row count stays n.
+The port of ``kmcuda_tpu.models.problem.prepare``.  The samples are cut
+into contiguous row shards, one per device of the call's
+:class:`~kmcuda_torch.parallel.devices.Topology` (one shard on one
+device).  Rows with any non-finite value are marked invalid once and
+zeroed, so no kernel ever sees a NaN; they keep the invalid id k.  fp16
+and bf16 input is stored as bf16, fp32 and fp64 input as fp32.  Nothing
+is padded: the kernels mask their own ragged edge, and the cut never
+pads either, so the shards' rows add up to n.
 """
 
 import dataclasses
@@ -13,25 +16,98 @@ import numpy as np
 import torch
 
 from kmcuda_torch.ops.distance import DistanceMetric, row_sq_norms
+from kmcuda_torch.parallel.devices import Topology
 from kmcuda_torch.utils.errors import KMTPUInvalidArguments
 
 
 @dataclasses.dataclass
+class Shard:
+    """Rows [start, stop) of the samples, on one device."""
+
+    start: int
+    stop: int
+    x: torch.Tensor        # (rows, F) cleaned, storage dtype
+    x_sq: torch.Tensor     # (rows,) fp32 squared norms
+    valid: torch.Tensor    # (rows,) bool
+    assign0: torch.Tensor  # (rows,) int32 all k: 'never assigned'
+
+
+@dataclasses.dataclass
 class Problem:
-    """Device-resident, cleaned inputs."""
+    """Device-resident, cleaned inputs, one :class:`Shard` per device of
+    ``topo``."""
 
     logger: object
     n: int
     features: int
     k: int
     metric: DistanceMetric
-    device: torch.device
+    topo: Topology
     dtype: torch.dtype    # storage dtype (float32 or bfloat16)
-    x: torch.Tensor       # (n, F) cleaned, storage dtype
-    x_sq: torch.Tensor    # (n,) fp32 squared norms
-    valid: torch.Tensor   # (n,) bool
-    assign0: torch.Tensor  # (n,) int32 all k: 'never assigned'
+    shards: list
     n_valid: int
+    starts: torch.Tensor  # (shards,) int64 first row of each, on the leader
+    lasts: torch.Tensor   # (shards,) int64 last local row of each, ditto
+
+    @property
+    def device(self) -> torch.device:
+        """The leader: where centroids and reductions live."""
+        return self.topo.leader
+
+    @property
+    def xs(self) -> list:
+        return [s.x for s in self.shards]
+
+    @property
+    def x_sqs(self) -> list:
+        return [s.x_sq for s in self.shards]
+
+    @property
+    def valids(self) -> list:
+        return [s.valid for s in self.shards]
+
+    @property
+    def assign0s(self) -> list:
+        return [s.assign0 for s in self.shards]
+
+    def _whole(self, name: str) -> torch.Tensor:
+        if len(self.shards) != 1:
+            raise ValueError("problem.%s of a %d-shard problem; use %ss"
+                             % (name, len(self.shards), name))
+        return getattr(self.shards[0], name)
+
+    # the whole arrays of a one-shard problem
+    x = property(lambda self: self._whole("x"))
+    x_sq = property(lambda self: self._whole("x_sq"))
+    valid = property(lambda self: self._whole("valid"))
+    assign0 = property(lambda self: self._whole("assign0"))
+
+    def per_shard(self, v) -> list:
+        """Per-row values as a list over the shards: a list is taken as it
+        is, a whole (n, ...) tensor is cut by the shards' rows (see
+        ``parallel.devices.shaped_like`` for the way back)."""
+        if not isinstance(v, torch.Tensor):
+            return list(v)
+        if len(self.shards) == 1:
+            return [v]
+        return self.topo.scatter(v, [(s.start, s.stop) for s in self.shards])
+
+    def take(self, parts, ids) -> torch.Tensor:
+        """Rows ``ids`` (global row ids, an int64 tensor) of per-shard
+        ``parts``, on the leader in the order of ``ids``, with no host
+        sync: every shard gathers the ids' clamped local rows, and each id
+        keeps the row of the shard that holds it."""
+        lead = self.device
+        ids = ids.to(lead)
+        if len(parts) == 1:
+            return parts[0].index_select(0, ids)
+        which = torch.searchsorted(self.starts, ids, right=True) - 1
+        local = torch.minimum(
+            torch.clamp(ids[None, :] - self.starts[:, None], min=0),
+            self.lasts[:, None])
+        rows = torch.stack([part.index_select(0, loc.to(part.device))
+                            .to(lead) for part, loc in zip(parts, local)])
+        return rows[which, torch.arange(ids.numel(), device=lead)]
 
 
 def storage_dtype_for(dtype) -> torch.dtype:
@@ -55,42 +131,70 @@ def _as_tensor(samples) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def prepare(samples, k: int, metric: DistanceMetric, device: torch.device,
-            logger, donate: bool = False) -> Problem:
-    """Move the samples to ``device`` in their storage dtype and clean them.
+def prepare(samples, k: int, metric: DistanceMetric, where, logger,
+            donate: bool = False) -> Problem:
+    """Cut the samples into row shards over ``where`` (a
+    :class:`Topology`, or one ``torch.device``), move each to its device
+    in the storage dtype and clean it.  With fewer rows than devices the
+    first n devices take a row each.
 
     The caller's data is never written unless ``donate`` is set and
-    ``samples`` is a tensor that is already contiguous and in its storage
-    dtype on ``device``: then invalid rows are zeroed in place instead of
-    in a copy.
+    ``samples`` is a tensor whose rows are already contiguous and in their
+    storage dtype on their shard's device: then invalid rows are zeroed in
+    place instead of in a copy.
     """
+    topo = where if isinstance(where, Topology) else Topology([where])
     is_tensor = isinstance(samples, torch.Tensor)
     src = samples if is_tensor else _as_tensor(samples)
     n, features = src.shape
     dtype = storage_dtype_for(src.dtype)
-    x = src.to(device=device, dtype=dtype).contiguous()
-    owned = x.data_ptr() != src.data_ptr() or (is_tensor and donate)
-    valid = torch.isfinite(x).all(dim=1)
-    n_valid = int(valid.sum())
-    if n_valid < n:
-        invalid = torch.logical_not(valid)[:, None]
-        x = x.masked_fill_(invalid, 0) if owned else x.masked_fill(invalid, 0)
-    x_sq = row_sq_norms(x)
-    assign0 = torch.full((n,), k, dtype=torch.int32, device=device)
+    if n < topo.n:
+        logger.info("%d samples for %d devices: running on %d shards"
+                    % (n, topo.n, n))
+        topo = Topology(topo.devices[:n])
+    ranges = topo.split(n)
+    parts = []
+    for (start, stop), dev in zip(ranges, topo.devices):
+        part = src[start:stop]
+        x = part.to(device=dev, dtype=dtype).contiguous()
+        owned = x.data_ptr() != part.data_ptr() or (is_tensor and donate)
+        parts.append((x, owned, torch.isfinite(x).all(dim=1)))
+    n_valids = topo.read([valid.sum() for _x, _o, valid in parts])
+    shards = []
+    for (start, stop), (x, owned, valid), nv in zip(ranges, parts,
+                                                    n_valids):
+        if nv < stop - start:
+            invalid = torch.logical_not(valid)[:, None]
+            x = (x.masked_fill_(invalid, 0) if owned
+                 else x.masked_fill(invalid, 0))
+        shards.append(Shard(start, stop, x, row_sq_norms(x), valid,
+                            torch.full((stop - start,), k, dtype=torch.int32,
+                                       device=x.device)))
+    n_valid = sum(n_valids)
     logger.debug("prepared problem: n=%d, features=%d, k=%d, dtype=%s, "
-                 "device=%s, valid=%d"
+                 "device=%s%s, valid=%d"
                  % (n, features, k, str(dtype).replace("torch.", ""),
-                    device, n_valid))
-    # the JAX package's split plan (one line per device; here one device
-    # holds rows [0, n) as one chunk) and, at verbosity 3, its allocation map
-    logger.debug("plan: %s rows [0, %d) (1 chunks, %.1f MB samples)"
-                 % (device, n, x.numel() * x.element_size() / 2**20))
-    for name, arr in (("x", x), ("x_sq", x_sq), ("valid", valid),
-                      ("assign0", assign0)):
-        logger.trace("alloc %-8s %-14s %-9s %8.1f MB sharded over 1"
-                     % (name, tuple(arr.shape),
-                        str(arr.dtype).replace("torch.", ""),
-                        arr.numel() * arr.element_size() / 2**20))
+                    topo.leader, ", shards=%d" % topo.n if topo.n > 1
+                    else "", n_valid))
+    # the JAX package's split plan, one line per shard (one chunk each: the
+    # port scans a shard in one launch), and at verbosity 3 its
+    # allocation map
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    for s in shards:
+        logger.debug("plan: %s rows [%d, %d) (1 chunks, %.1f MB samples)"
+                     % (s.x.device, s.start, s.stop,
+                        (s.stop - s.start) * features * itemsize / 2**20))
+    for name, shape, arr in (
+            ("x", (n, features), shards[0].x),
+            ("x_sq", (n,), shards[0].x_sq), ("valid", (n,), shards[0].valid),
+            ("assign0", (n,), shards[0].assign0)):
+        logger.trace("alloc %-8s %-14s %-9s %8.1f MB sharded over %d"
+                     % (name, shape, str(arr.dtype).replace("torch.", ""),
+                        int(np.prod(shape)) * arr.element_size() / 2**20,
+                        topo.n))
     return Problem(logger=logger, n=n, features=features, k=k, metric=metric,
-                   device=device, dtype=dtype, x=x, x_sq=x_sq, valid=valid,
-                   assign0=assign0, n_valid=n_valid)
+                   topo=topo, dtype=dtype, shards=shards, n_valid=n_valid,
+                   starts=torch.tensor([s.start for s in shards],
+                                       device=topo.leader),
+                   lasts=torch.tensor([s.stop - s.start - 1 for s in shards],
+                                      device=topo.leader))

@@ -19,6 +19,11 @@ what runs, never what comes out: budget gates hand a run with fewer than
 Lloyd, and the loop runs in windows of iterations whose walls decide
 whether it may take its sparse branch (:func:`run`).  Above
 ``YY_BOUNDS_F32_MAX_BYTES`` of fp32 lower bounds they are stored in bf16.
+
+Over row shards the draft and the loop run each shard's passes and reduce
+in shard order (``ops.assign``, ``ops.yinyang``); the grouping runs on the
+leader over the centroids, and the gates and the controller decide on the
+global counts, on the host.
 """
 
 import time
@@ -33,6 +38,7 @@ from kmcuda_torch.models.problem import prepare
 from kmcuda_torch.ops import assign as A
 from kmcuda_torch.ops import distance as D
 from kmcuda_torch.ops import yinyang as YY
+from kmcuda_torch.parallel.devices import shaped_like
 from kmcuda_torch.utils.logging import Logger
 
 
@@ -117,6 +123,18 @@ def _group_centroids(centroids, groups: int, metric, gen) -> YY.GroupLayout:
 
 def run(problem, centroids, assignments, tolerance, groups: int,
         max_iterations=None, seed: int = 0):
+    """Full Yinyang (:func:`_run`); ``assignments`` is a whole (n,) tensor
+    or a list of per-shard ones, and the returned assignments and best
+    scores take its form."""
+    c, a, best, iters = _run(problem, centroids,
+                             problem.per_shard(assignments), tolerance,
+                             groups, max_iterations, seed)
+    return (c, shaped_like(assignments, a),
+            None if best is None else shaped_like(assignments, best), iters)
+
+
+def _run(problem, centroids, assignments, tolerance, groups: int,
+         max_iterations, seed: int):
     """Full Yinyang: draft Lloyd -> centroid grouping -> Yinyang loop,
     under the wall-clock controller (``config.YY_WALL_CONTROLLER``).
 
@@ -162,7 +180,7 @@ def run(problem, centroids, assignments, tolerance, groups: int,
     t0 = time.perf_counter()
     drv = L.Driver(p.logger, int(config.YINYANG_DRAFT_REASSIGNMENTS * p.n),
                    budget)
-    steps = A.lloyd_run(p.x, p.valid, assignments, centroids,
+    steps = A.lloyd_run(p.xs, p.valids, assignments, centroids,
                         n_clusters=p.k, metric=p.metric)
     walls = []
     step = L.drive(drv, steps, walls)
@@ -213,7 +231,7 @@ def run(problem, centroids, assignments, tolerance, groups: int,
     judged = False
     reprobe_after = config.YY_REPROBE_ITERS
     since_revoke = 0
-    loop = YY.yy_run(p.x, p.x_sq, p.valid, step.assign, step.c_used,
+    loop = YY.yy_run(p.xs, p.x_sqs, p.valids, step.assign, step.c_used,
                      step.sums, step.counts, step.changed, layout,
                      n_clusters=p.k, metric=p.metric, sched=sched,
                      bounds_dtype=bounds_dtype)

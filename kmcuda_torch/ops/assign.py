@@ -9,6 +9,12 @@ assignment-only pass plus the compacted delta of the moved rows, which is
 ADDED to them.  The arm is chosen from the previous iteration's count.
 Each iteration pays one host sync, to read its reassignment count — the
 same sync the reference kmcuda pays in ``check_changed``.
+
+The loop runs over row shards (``parallel.devices``): every iteration
+launches each shard's pass on its device, then reduces the shards' sums,
+counts and reassignment counts on the leader in shard order, normalizes
+there and broadcasts the centroids.  One shard is the same loop with
+identity reductions.
 """
 
 from typing import NamedTuple
@@ -18,6 +24,7 @@ import torch
 
 from kmcuda_torch.ops import compact as C
 from kmcuda_torch.ops import distance as D
+from kmcuda_torch.parallel.devices import Topology, as_shards, shaped_like
 
 INT32_MAX = int(np.iinfo(np.int32).max)
 
@@ -77,35 +84,50 @@ def lloyd_run(x, valid, assign, centroids, *, n_clusters: int,
     """Iterate Lloyd; yields a :class:`LloydStep` once per iteration and
     runs until the caller stops iterating.
 
-    The first iteration is always dense (the previous count starts at
-    int32 max), so the running sums exist before any sparse iteration adds
-    to them.
+    ``x``, ``valid`` and ``assign`` are tensors (one shard) or lists of
+    per-shard tensors, shard i on its own device; a step's ``assign`` and
+    ``best`` take the same form, its centroids and running (sums, counts)
+    live on the leader (shard 0's device).  The first iteration is always
+    dense (the previous count starts at int32 max), so the running sums
+    exist before any sparse iteration adds to them.
     """
     # imported here: assign_kernels imports this module's panel builders
     from kmcuda_torch.ops import assign_kernels as K
 
     k = n_clusters
-    n = x.shape[0]
-    c_cur = centroids.float()
+    xs, valids, assigns = as_shards(x), as_shards(valid), as_shards(assign)
+    topo = Topology.of(xs)
+    n = sum(t.shape[0] for t in xs)
+    kw = dict(n_clusters=k, metric=metric)
+    c_cur = centroids.float().to(topo.leader)
     sums = counts = None
     prev_changed = INT32_MAX
     while True:
+        cs = topo.broadcast(c_cur)
         if C.predict_dense(prev_changed, n):
-            aid, best, sums, counts, changed_t = K.fused_lloyd_pass(
-                x, valid, assign, c_cur, n_clusters=k, metric=metric)
+            outs = [K.fused_lloyd_pass(xi, vi, ai, ci, **kw)
+                    for xi, vi, ai, ci in zip(xs, valids, assigns, cs)]
+            sums = topo.reduce([o[2] for o in outs])
+            counts = topo.reduce([o[3] for o in outs])
             c_next = D.normalize_centroids(sums, counts.float(), metric)
-            changed = int(changed_t)
+            changed = sum(topo.read([o[4] for o in outs]))
         else:
-            aid, best, changed_t = K.assign_only_pass(
-                x, valid, assign, c_cur, n_clusters=k, metric=metric)
-            # the iteration's one sync: the count is also the compacted
-            # walk's trip count
-            changed = int(changed_t)
-            order, _ = C.stable_partition(aid != assign)
-            d_sums, d_counts = C.delta_compacted(
-                x, aid, assign, order, changed, n_clusters=k)
-            sums = sums + d_sums
-            counts = counts + d_counts
+            outs = [K.assign_only_pass(xi, vi, ai, ci, **kw)
+                    for xi, vi, ai, ci in zip(xs, valids, assigns, cs)]
+            # the iteration's one sync: the counts are also the compacted
+            # walks' trip counts
+            per = topo.read([o[2] for o in outs])
+            changed = sum(per)
+            deltas = []
+            for xi, ai, o, ch in zip(xs, assigns, outs, per):
+                order, _ = C.stable_partition(o[0] != ai)
+                deltas.append(C.delta_compacted(xi, o[0], ai, order, ch,
+                                                n_clusters=k))
+            sums = sums + topo.reduce([d[0] for d in deltas])
+            counts = counts + topo.reduce([d[1] for d in deltas])
             c_next = D.normalize_centroids(sums, counts.float(), metric)
-        yield LloydStep(c_cur, c_next, aid, best, changed, sums, counts)
-        assign, c_cur, prev_changed = aid, c_next, changed
+        aids = [o[0] for o in outs]
+        yield LloydStep(c_cur, c_next, shaped_like(x, aids),
+                        shaped_like(x, [o[1] for o in outs]), changed, sums,
+                        counts)
+        assigns, c_cur, prev_changed = aids, c_next, changed

@@ -158,7 +158,10 @@ def point_distances(x, x_sq, c, metric: DistanceMetric):
     if metric == DistanceMetric.L2:
         cf = c.float()
         c_sq = torch.sum(cf * cf)
-        return torch.sqrt(torch.clamp(x_sq - 2.0 * prod + c_sq, min=0.0))
+        # x_sq - 2 prod + c_sq in place: -2 prod is exact, so one add with
+        # alpha rounds as the product and the subtraction do
+        d2 = torch.add(x_sq, prod, alpha=-2.0).add_(c_sq)
+        return d2.clamp_(min=0.0).sqrt_()
     return torch.arccos(torch.clamp(prod, -1.0, 1.0))
 
 

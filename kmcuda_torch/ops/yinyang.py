@@ -53,6 +53,13 @@ is the exact subtract-square distance with an upward margin; fresh l one
 fp32 product against the capacity-balanced (G, cap) group panel with the
 own slot excluded and a downward margin.  The JAX package's one-hot table
 lookups (a TPU workaround for small-table gathers) are plain gathers here.
+
+Over row shards (``parallel.devices``) the bounds, the filter, the
+tighten, the survivors, the refreshes and the patch are each shard's own,
+on its device; the centroids, drift and tables are built on the leader and
+broadcast.  The candidate and survivor counts and the (sums, counts,
+reassignments) are reduced in shard order, as the JAX loop's psums, and
+the schedule decides on the global counts, once per iteration.
 """
 
 import dataclasses
@@ -65,6 +72,7 @@ from kmcuda_torch import config
 from kmcuda_torch.ops import assign_kernels as K
 from kmcuda_torch.ops import compact as C
 from kmcuda_torch.ops import distance as D
+from kmcuda_torch.parallel.devices import Topology, as_shards, shaped_like
 
 #: every elementwise bound pass runs over row chunks of at most this many
 #: elements of its widest temporary, bounding its fp32 scratch to 256 MB
@@ -85,6 +93,9 @@ class GroupLayout(NamedTuple):
     pad_src: torch.Tensor    # (G, cap) int64 centroid of each slot
     pad_pen: torch.Tensor    # (G, cap) fp32: 0 real slot, PAD_PENALTY pad
     cap: int
+
+    def to(self, device) -> "GroupLayout":
+        return GroupLayout(*(t.to(device) for t in self[:4]), self.cap)
 
 
 @dataclasses.dataclass
@@ -130,6 +141,9 @@ class _Tables(NamedTuple):
     c_sq_ext: torch.Tensor   # (k+1,) fp32, PAD_PENALTY for dead rows
     panel_t: torch.Tensor    # (F, G*cap) storage dtype group panel
     bias: torch.Tensor       # (G*cap,) fp32
+
+    def to(self, device) -> "_Tables":
+        return _Tables(*(t.to(device) for t in self))
 
 
 def exact_drift(c_new, c_old, metric):
@@ -297,25 +311,39 @@ def yy_run(x, x_sq, valid, assign, c_used, sums, counts, prev_changed: int,
     :class:`Schedule` the caller's controller steers (a fresh one when
     None); ``bounds_dtype`` the storage of l (fp32 or bf16).
 
+    ``x``, ``x_sq``, ``valid`` and ``assign`` are tensors (one shard) or
+    lists of per-shard tensors, as ``ops.assign.lloyd_run`` takes them; a
+    step's ``assign``, ``u``, ``l`` and ``ga`` take the same form.
+
     The first iteration has no bounds yet: it refreshes every bound, on
     the dense path (on the sparse one in a triage mode, every valid row a
     candidate)."""
     k = n_clusters
-    n = x.shape[0]
+    xs, xsqs = as_shards(x), as_shards(x_sq)
+    valids, assigns = as_shards(valid), as_shards(assign)
+    topo = Topology.of(xs)
+    d = topo.n
+    n = sum(t.shape[0] for t in xs)
     groups, cap = layout.pad_src.shape
-    dev = x.device
-    eps = D.rounding_eps(x.dtype)
+    dtype = xs[0].dtype
+    eps = D.rounding_eps(dtype)
+    layout = layout.to(topo.leader)
+    lays = [layout.to(dev) for dev in topo.devices]
     real = layout.pad_pen == 0
     s = Schedule() if sched is None else sched
     debug = int(config.YY_DEBUG_MODE)
     dense_rows = np.float32(config.YY_DENSE_FRACTION) * np.float32(n)
     backoff_max = int(config.YY_REFRESH_BACKOFF_MAX)
-    u = torch.zeros((n,), dtype=torch.float32, device=dev)
-    l = torch.zeros((n, groups), dtype=bounds_dtype, device=dev)
-    ga = torch.zeros((n,), dtype=torch.int64, device=dev)
-    acc = torch.zeros((groups,), dtype=torch.float32, device=dev)
-    n_valid = int(valid.sum())
-    c_cur = c_used.float()
+    us = [torch.zeros((t.shape[0],), dtype=torch.float32, device=t.device)
+          for t in xs]
+    ls = [torch.zeros((t.shape[0], groups), dtype=bounds_dtype,
+                      device=t.device) for t in xs]
+    gas = [torch.zeros((t.shape[0],), dtype=torch.int64, device=t.device)
+           for t in xs]
+    acc = torch.zeros((groups,), dtype=torch.float32, device=topo.leader)
+    n_valid = sum(topo.read([v.sum() for v in valids]))
+    c_cur = c_used.float().to(topo.leader)
+    sums, counts = sums.to(topo.leader), counts.to(topo.leader)
     first = True
     kw = dict(n_clusters=k, metric=metric)
     while True:
@@ -323,14 +351,18 @@ def yy_run(x, x_sq, valid, assign, c_used, sums, counts, prev_changed: int,
         drift = exact_drift(c_new, c_cur, metric)
         acc = (acc + torch.where(real, drift[layout.pad_src], 0.0).amax(1)
                ) * (1.0 + 2.0 ** -20)
-        t = _tables(c_new, layout, x.dtype, metric)
-        state = (u, l, ga, acc)
-        lmin = _lmin_now(l, acc)
+        t = _tables(c_new, layout, dtype, metric)
+        ts = [t.to(dev) for dev in topo.devices]
+        accs = topo.broadcast(acc)
+        cs = topo.broadcast(c_new)
+        states = list(zip(us, ls, gas, accs))
+        lmins = [_lmin_now(l, a) for l, a in zip(ls, accs)]
         if first or debug == 1:   # no bounds yet; triage distrusts the filter
-            cand, n_cand = valid, n_valid
+            cands, n_cand = valids, n_valid
         else:
-            cand = valid & (_u_now(u, ga, acc) >= lmin)
-            n_cand = int(cand.sum())
+            cands = [v & (_u_now(u, ga, a) >= lm) for v, u, ga, a, lm in
+                     zip(valids, us, gas, accs, lmins)]
+            n_cand = sum(topo.read([c.sum() for c in cands]))
         sum_dense = C.predict_dense(prev_changed, n)
         # the triage modes exercise the sparse path in every iteration
         dense = not debug and (first or not s.sparse_ok
@@ -352,55 +384,80 @@ def yy_run(x, x_sq, valid, assign, c_used, sums, counts, prev_changed: int,
         if debug:   # triage tightens and refreshes every bound it touches
             sparse_refresh, tighten = True, True
 
-        # ---- the survivors of a sparse path -----------------------------
-        rows = None
+        # ---- the survivors of a sparse path, per shard ------------------
+        rowss = [None] * d
         if not dense:
-            rows = torch.nonzero(cand).squeeze(1)
-            if tighten:
-                ab = assign[rows].long()
-                u_ex = _tighten(x[rows], x_sq[rows], ab, t, eps, metric)
-                u[rows] = _u_store(u_ex, acc[layout.flat_slot[ab] // cap])
-                if debug != 2:   # triage mode 2 distrusts the tighten
-                    rows = rows[u_ex >= lmin[rows]]
+            for i in range(d):
+                rows = torch.nonzero(cands[i]).squeeze(1)
+                if tighten:
+                    ab = assigns[i][rows].long()
+                    u_ex = _tighten(xs[i][rows], xsqs[i][rows], ab, ts[i],
+                                    eps, metric)
+                    us[i][rows] = _u_store(
+                        u_ex, accs[i][lays[i].flat_slot[ab] // cap])
+                    if debug != 2:   # triage mode 2 distrusts the tighten
+                        rows = rows[u_ex >= lmins[i][rows]]
+                rowss[i] = rows
 
         # ---- assignment: exactly Lloyd's iteration, or B2 gathered -----
         moved = None
         if sum_dense:
-            aid, _best, sums, counts, changed_t = K.fused_lloyd_pass(
-                x, valid, assign, c_new, **kw)
-            changed = int(changed_t)
+            outs = [K.fused_lloyd_pass(xi, vi, ai, ci, **kw)
+                    for xi, vi, ai, ci in zip(xs, valids, assigns, cs)]
+            aids = [o[0] for o in outs]
+            sums = topo.reduce([o[2] for o in outs])
+            counts = topo.reduce([o[3] for o in outs])
+            per = topo.read([o[4] for o in outs])
         elif dense:
-            aid, _best, changed_t = K.assign_only_pass(
-                x, valid, assign, c_new, **kw)
-            changed = int(changed_t)
-            order, _ = C.stable_partition(aid != assign)
-            moved = order[:changed]
+            outs = [K.assign_only_pass(xi, vi, ai, ci, **kw)
+                    for xi, vi, ai, ci in zip(xs, valids, assigns, cs)]
+            aids = [o[0] for o in outs]
+            per = topo.read([o[2] for o in outs])
+            moved = [C.stable_partition(aid != a)[0][:ch]
+                     for aid, a, ch in zip(aids, assigns, per)]
         else:
-            aid, changed, moved = assign, 0, rows[:0]
-            if rows.numel():
-                aid_r, _best, changed_t = K.assign_only_pass(
-                    x[rows], valid[rows], assign[rows], c_new, **kw)
-                aid = assign.index_copy(0, rows, aid_r)
-                changed = int(changed_t)
-                moved = rows[aid_r != assign[rows]]
+            aids, per, moved = list(assigns), [0] * d, []
+            launched = []
+            for i, rows in enumerate(rowss):
+                a_r = assigns[i][rows]
+                if rows.numel():
+                    aid_r, _best, changed_t = K.assign_only_pass(
+                        xs[i][rows], valids[i][rows], a_r, cs[i], **kw)
+                    aids[i] = assigns[i].index_copy(0, rows, aid_r)
+                    launched.append((i, changed_t))
+                    moved.append(rows[aid_r != a_r])
+                else:
+                    moved.append(rows)
+            for (i, _), ch in zip(launched, topo.read(
+                    [c for _, c in launched]) if launched else []):
+                per[i] = ch
+        changed = sum(per)
         if moved is not None:
-            d_sums, d_counts = C.delta_compacted(x, aid, assign, moved,
-                                                 changed, n_clusters=k)
-            sums = sums + d_sums
-            counts = counts + d_counts
-        passed = n_valid if dense else rows.numel()
+            deltas = [C.delta_compacted(xi, aid, a, mv, ch, n_clusters=k)
+                      for xi, aid, a, mv, ch in zip(xs, aids, assigns, moved,
+                                                    per)]
+            sums = sums + topo.reduce([dl[0] for dl in deltas])
+            counts = counts + topo.reduce([dl[1] for dl in deltas])
+        passed = n_valid if dense else sum(r.numel() for r in rowss)
 
         # ---- bounds: the four variants, then the moved-row patch --------
         refreshed = refresh or sparse_refresh
-        if refreshed:
-            _refresh(x, x_sq, aid, rows, state, t, layout, metric)
-        else:
-            _refresh_u(x, aid, rows, state, t, layout, metric)
+        for i in range(d):
+            if refreshed:
+                _refresh(xs[i], xsqs[i], aids[i], rowss[i], states[i], ts[i],
+                         lays[i], metric)
+            else:
+                _refresh_u(xs[i], aids[i], rowss[i], states[i], ts[i],
+                           lays[i], metric)
         patched = 0
         if not refreshed and changed:
-            if moved is None:
-                moved = torch.nonzero(aid != assign).squeeze(1)
-            _refresh(x, x_sq, aid, moved, state, t, layout, metric)
+            for i in range(d):
+                if not per[i]:
+                    continue
+                mv = (torch.nonzero(aids[i] != assigns[i]).squeeze(1)
+                      if moved is None else moved[i])
+                _refresh(xs[i], xsqs[i], aids[i], mv, states[i], ts[i],
+                         lays[i], metric)
             patched = changed
         variant = VARIANTS[(0 if dense else 2) + int(refreshed)]
 
@@ -423,6 +480,7 @@ def yy_run(x, x_sq, valid, assign, c_used, sums, counts, prev_changed: int,
         s.period = period
         s.prev_passed = passed
         s.ref_any = refreshed
-        yield YinyangStep(c_new, aid, changed, n_cand, passed, u, l, ga, acc,
-                          variant, patched)
-        assign, c_cur, prev_changed, first = aid, c_new, changed, False
+        yield YinyangStep(c_new, shaped_like(x, aids), changed, n_cand,
+                          passed, shaped_like(x, us), shaped_like(x, ls),
+                          shaped_like(x, gas), acc, variant, patched)
+        assigns, c_cur, prev_changed, first = aids, c_new, changed, False

@@ -9,8 +9,8 @@
 #    with NA for the neighbours of a row with non-finite features.
 #
 # Implementation: the kmcuda_torch Python package via reticulate.  Numpy
-# arrays run on the CUDA card the `device` mask selects (there is no CPU
-# fallback).  Under KMTPU_PLATFORM=cpu the arrays go in as CPU tensors
+# arrays run on the CUDA cards the `device` mask selects, their rows split
+# over them (there is no CPU fallback).  Under KMTPU_PLATFORM=cpu the arrays go in as CPU tensors
 # (torch$from_numpy) and the calls run on the CPU, so the suite runs on a
 # machine without a card.
 
@@ -68,7 +68,8 @@
 #' @param metric "L2" or "cos".
 #' @param average_distance also return the mean sample-centroid distance.
 #' @param seed integer random seed.
-#' @param device device bitmask (0 = all; one card runs a call).
+#' @param device device bitmask (0 = all cards; the rows are split over
+#'   the cards it selects).
 #' @param verbosity 0 silent, 1 progress, 2 debug.
 #' @return list(centroids, assignments[, average_distance]); assignments
 #'         are 1-based.

@@ -273,6 +273,88 @@ def test_kmeans_from_handles_imports_its_start(on_cpu, blobs):
     assert capi.release_handle(hs) == SUCCESS
 
 
+def test_multi_bit_mask_reaches_the_sharded_path(separated, on_cpu,
+                                                 monkeypatch, capsys):
+    """A mask that selects several devices scatters the samples over them,
+    through the pointer and the handle paths: three logical CPU devices
+    here, one plan line each.  The separated set has no knife-edge
+    sample, so the assignments and neighbours are the mask-0 call's."""
+    from kmcuda_torch.parallel import devices
+
+    x = separated
+    n, f = x.shape
+    c0 = x[np.random.RandomState(3).choice(n, 32, replace=False)]
+    one = _kmeans(capi, x, c0, 1, 0.0, 0, capsys)
+    monkeypatch.setattr(devices, "select_devices",
+                        lambda mask, logger=None: [torch.device("cpu")] * 3)
+    three = _kmeans(capi, x, c0, 1, 0.0, 7, capsys)
+    assert one[0] == three[0] == SUCCESS
+    plans = [[l for l in r[4].splitlines() if l.startswith("plan: ")]
+             for r in (one, three)]
+    assert [len(p) for p in plans] == [1, 3]
+    assert plans[1][1].startswith("plan: cpu rows [1366, 2731) ")
+    np.testing.assert_array_equal(three[2], one[2])
+    np.testing.assert_allclose(three[1], one[1], rtol=1e-5, atol=1e-6)
+    code, nb1 = _knn(capi, 8, x, one[1], one[2], 1, 0)
+    code3, nb3 = _knn(capi, 8, x, one[1], one[2], 1, 7)
+    assert code == code3 == SUCCESS
+    np.testing.assert_array_equal(nb3, nb1)
+
+    _code, hs = capi.upload_from_pointer(_ptr(x), n, f, 0)
+    _code, hi = capi.upload_from_pointer(_ptr(np.ascontiguousarray(c0)), 32,
+                                         f, 0)
+    code, hc, ha, _avg = capi.kmeans_from_handles(
+        3, 0, 0.01, 0.0, 1, 32, 5, 7, 2, hs, hi, 0)
+    assert code == SUCCESS
+    assert capi._handles[ha].device == torch.device("cpu")
+    assert len([l for l in capsys.readouterr().out.splitlines()
+                if l.startswith("plan: ")]) == 3
+    code, hn = capi.knn_from_handles(8, 1, 7, 0, hs, hc, ha)
+    assert code == SUCCESS
+    np.testing.assert_array_equal(
+        capi._handles[ha].numpy().view(np.uint32), one[2])
+    np.testing.assert_array_equal(capi._handles[hn].numpy().view(np.uint32),
+                                  nb1)
+    for h in (hs, hi, hc, ha, hn):
+        assert capi.release_handle(h) == SUCCESS
+
+
+def test_mask_zero_cuts_handles_as_it_cuts_pointers(blobs, monkeypatch,
+                                                    capsys):
+    """native/test_kmtpu.c requires the handle pipeline bitwise the
+    pointer path, both with mask 0.  On a host with three devices (three
+    logical CPU devices here, ``KMTPU_PLATFORM`` unset) mask 0 must cut a
+    handle over all three as it cuts the host buffer, not keep it on its
+    own device."""
+    from kmcuda_torch.parallel import devices
+
+    monkeypatch.delenv("KMTPU_PLATFORM", raising=False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    monkeypatch.setattr(devices, "select_devices",
+                        lambda mask, logger=None: [torch.device("cpu")] * (
+                            3 if mask == 0 else bin(mask).count("1")))
+    x = blobs
+    n, f = x.shape
+    cent = np.zeros((50, f), np.float32)
+    assign = np.zeros(n, np.uint32)
+    code, avg = capi.kmeans_from_pointers(1, 0, 0.01, 0.0, 0, n, f, 50, 77,
+                                          0, 0, 0, _ptr(x), _ptr(cent),
+                                          _ptr(assign), 1)
+    assert code == SUCCESS
+    hs = capi._register(torch.from_numpy(x.copy()))
+    code, hc, ha, avg2 = capi.kmeans_from_handles(1, 0, 0.01, 0.0, 0, 50, 77,
+                                                  0, 2, hs, 0, 1)
+    assert code == SUCCESS
+    assert len([l for l in capsys.readouterr().out.splitlines()
+                if l.startswith("plan: ")]) == 3
+    assert avg2 == avg
+    np.testing.assert_array_equal(capi._handles[hc].numpy(), cent)
+    np.testing.assert_array_equal(
+        capi._handles[ha].numpy().view(np.uint32), assign)
+    for h in (hs, hc, ha):
+        assert capi.release_handle(h) == SUCCESS
+
+
 def test_upload_owns_its_copy(on_cpu):
     """tests/test_capi.py:100 on the port: the handle never sees the
     caller's later writes, checked on a 64-byte-aligned buffer (the

@@ -237,32 +237,50 @@ def test_numpy_input_needs_a_cuda_device(samples, monkeypatch):
         kmeans_cuda(samples, 50, init="random", yinyang_t=0)
 
 
-def test_not_ported_yet_raises(samples, monkeypatch):
-    """Every init runs; a mask selecting several devices raises (§A7)."""
+def test_every_init_runs_and_a_multi_bit_mask_shards(samples, monkeypatch,
+                                                    capsys):
+    """Every init runs; a mask selecting several devices scatters the
+    rows over them (two logical CPU shards here), and the results come
+    back on the tensor's device."""
+    from kmcuda_torch.parallel import devices
+
     x = torch.from_numpy(samples)
     for init in ("kmeans++", ("afkmc2", 10)):
         c, a = kmeans_cuda(x, 50, init=init, seed=1, tolerance=0.05,
                            yinyang_t=0)
         assert not torch.isnan(c).any() and int(a.max()) < 50
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="§A7"):
-        kmeans_cuda(x, 50, init="random", yinyang_t=0, device=3)
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(devices, "select_devices",
+                        lambda mask, logger=None: [cpu, cpu])
+    c, a = kmeans_cuda(x, 50, init="random", yinyang_t=0, device=3,
+                       verbosity=2)
+    plan = [l for l in capsys.readouterr().out.splitlines()
+            if l.startswith("plan: ")]
+    assert plan == ["plan: cpu rows [0, 6500) (1 chunks, 0.0 MB samples)",
+                    "plan: cpu rows [6500, 13000) (1 chunks, 0.0 MB "
+                    "samples)"]
+    assert c.device == a.device == cpu and a.shape == (13000,)
+    assert not torch.isnan(c).any() and int(a.max()) < 50
 
 
 def test_device_mask_rules(samples, monkeypatch):
-    from kmcuda_torch.parallel.devices import device_for
+    from kmcuda_torch.parallel.devices import topology_for
 
     x = torch.from_numpy(samples)
+    cpu = torch.device("cpu")
+    cuda = [torch.device("cuda", i) for i in range(2)]
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    assert device_for(x, 0) == torch.device("cpu")    # a tensor's own
-    assert device_for(samples, 2) == torch.device("cuda", 1)
-    for mask in (0, 3):
-        with pytest.raises(NotImplementedError, match="§A7"):
-            device_for(samples, mask)
-    with pytest.raises(KMTPUNoSuchDevice):
-        device_for(x, 4)
+    assert topology_for(samples, 3).devices == cuda   # both devices
+    assert topology_for(x, 3).devices == cuda         # a tensor scattered
+    assert topology_for(x, 0).devices == [cpu]        # a tensor's own
+    assert topology_for(x, 2).devices == [cpu]        # one bit: its own
+    assert topology_for(samples, 0).devices == cuda   # numpy: all devices
+    assert topology_for(samples, 2).devices == cuda[1:]
+    for data in (x, samples):
+        with pytest.raises(KMTPUNoSuchDevice):
+            topology_for(data, 0xFFFF)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    assert device_for(samples, 0) == torch.device("cuda", 0)
+    assert topology_for(samples, 0).devices == cuda[:1]
 
 
 def test_yinyang_request_runs_lloyd(samples, capsys):

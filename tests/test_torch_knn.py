@@ -213,13 +213,13 @@ def test_tensor_and_numpy_io(samples, clustered, monkeypatch):
     """A tensor gets an int32 tensor (-1 sentinel); a numpy array gets
     uint32 numpy (0xFFFFFFFF) — here run on the CPU by handing the call
     the CPU device the bitmask would pick on a card."""
-    import kmcuda_torch.api as api
+    from kmcuda_torch.parallel import devices
 
     x = samples[:3000].copy()
     x[3] = np.nan
     c, a = clustered[0], clustered[1][:3000]
-    monkeypatch.setattr(api, "device_for",
-                        lambda *_a, **_k: torch.device("cpu"))
+    monkeypatch.setattr(devices, "select_devices",
+                        lambda *_a, **_k: [torch.device("cpu")])
     out = knn_cuda(4, x, c, a)
     assert isinstance(out, np.ndarray) and out.dtype == np.uint32
     assert (out[3] == 0xFFFFFFFF).all()
