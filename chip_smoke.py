@@ -73,6 +73,26 @@ fp32 16-NN (neighbours d = 1's up to fp64 ties, tie-aware recall@16 1.0,
 examined fractions beside d = 1's); walls of d = 1, 2 and 4.  With
 several cards, numpy input over all of them, with the same checks.
 
+Scale (``scale_phase``): the JAX package's largest documented shapes, each
+made on the card from a seed and deleted before the next.  The reference's
+overflow run (tests/test_scale.py:35: 167,772,160 x 8 fp32, more than
+2**32 bytes, k=50, k-means++ seed 3, tolerance 0.142) and bench.py's 8M
+config (bench.py:383-439: 8,000,000 x 256 bf16, k=1024, k-means++ seed 17,
+tolerance 0.01; a warm, a timed and a one-iteration run, printed under
+bench.py's five metric names, and k-means++ alone with one step's
+distance pass and draw), each with the argmin on a sample of rows and the
+kernels timed at its shape and held there over every row (B1's sums
+against fp64 sums); B1 and B2 at 9,000,000 x 256 bf16, past 2**31
+elements, held against the plain twin on rows both sides of the first row
+whose offset row * f reaches 2**31, then ``kmeans_cuda`` there;
+``knn_cuda`` at k=16,384 (tests/test_scale.py:97, the projection relabel)
+with tie-aware recall 1.0 over every row and the walk against its twin;
+and k=2048 Yinyang (tests/test_scale.py:136) equal to Lloyd bitwise, at
+the JAX test's 3 iterations and over 8, where sparse iterations filter
+rows.  Each
+run prints its wall, iterations, peak memory and launches.  The phase
+needs about 24 GB of card memory.
+
 Prints the card's name and power limit beside every time, the smoke's
 wall, a JSON line of the kernels, and as its last line a JSON object with
 ``"ok": true``.  Any failure raises, so the exit code is non-zero; so it
@@ -92,6 +112,10 @@ Tolerances (kernel vs plain twin on the same tensors):
   segment sum of the kernel's own assignment; counts and reassignment
   counts equal to the plain count of the kernel's assignment, and to the
   plain twin's where the assignments are equal.
+- B1's sums past 2**31 elements: within rtol 1e-5 / atol 1e-5 * mean |x|
+  of fp64 sums of its own assignment (a cluster there holds ~10^5 rows,
+  and the plain segment sum's fp32 atomics round past rtol 1e-5 of fp64);
+  counts bitwise a bincount of its assignment.
 - B3 (``ops.knn_kernels.compare_walks``, after the shared exact rescore):
   per-chunk examined counts equal unless the step where the walks part has
   its bound within 1e-5 relative of tau; neighbour ids equal except where
@@ -361,7 +385,7 @@ def score_ulps(rows=4096):
     return worst
 
 
-def time_kernels(tag, shape, dtype, reps):
+def time_kernels(tag, shape, dtype, reps, errs=None):
     """B1, B2 and B1's segment sum at one main-path shape, each in turns
     with its plain twin and library yardstick (plain, kernel, kernel,
     plain, library); returns {name: {ms, plain_ms, library_ms, library,
@@ -369,7 +393,10 @@ def time_kernels(tag, shape, dtype, reps):
     in the storage dtype: the score product only.  The segment sum's is
     ``torch.zeros(k, f).index_add_(0, aid, x.float())``; the kernel is
     launched through ``K.launch_segment_sum``, which counts no launch.  B1
-    has none: no single call scores, picks and sums."""
+    has none: no single call scores, picks and sums.  With ``errs`` (the
+    scale shapes, which check_kernels does not reach) B1 and B2 are also
+    held on the same inputs, over every row, by :func:`hold_pass`; B1's
+    entry then carries its ``sums_vs_fp64``."""
     n, f, k = shape["n"], shape["f"], shape["k"]
     x, valid, prev, c = make_inputs(n, f, k, dtype, D.DistanceMetric.L2,
                                     False, 11)
@@ -418,11 +445,108 @@ def time_kernels(tag, shape, dtype, reps):
                  bnd["ms"], bnd["by"], bnd["bytes"],
                  ", ".join("%.4g %s" % (v, kind)
                            for kind, v in bnd["ops"].items())), flush=True)
-    del x, valid, prev, c, panel, aid, aid_long
+    del panel, aid, aid_long
+    if errs is not None:
+        b1 = K.fused_lloyd_pass(x, valid, prev, c, **kw)
+        b2 = K.assign_only_pass(x, valid, prev, c, **kw)
+        out["fused_lloyd_pass"]["sums_vs_fp64"] = hold_pass(
+            "%s scale: %dx%d %s k=%d" % (tag, n, f, name_dt, k), x, valid,
+            prev, c, b1, b2, errs)
+        del b1, b2
+    del x, valid, prev, c
     return out
 
 
-def check_result(x, k, c, a, metric, device=0):
+def fp64_sums(x, aid, k, step=1 << 20):
+    """(k, f) fp64 sums of x over the rows with aid < k, ``step`` rows at a
+    time."""
+    sums = torch.zeros((k, x.shape[1]), dtype=torch.float64, device=x.device)
+    for r in range(0, x.shape[0], step):
+        ids = aid[r:r + step]
+        keep = ids < k
+        sums.index_add_(0, ids[keep].long(), x[r:r + step][keep].double())
+    return sums
+
+
+def hold_pass(label, x, valid, prev, c, b1, b2, errs, rows=None):
+    """B1's and B2's results ``b1``, ``b2`` on (x, valid, prev, c) held
+    against the plain twin on ``rows`` (every row when None; the twin is
+    row-independent, so on a sample it runs on the gathered rows):
+    assignments equal off near-ties, best scores within rtol 1e-5 plus
+    1e-6 of |x|^2 + |c|^2 (their max |d| goes into ``errs``); B1 == B2 bitwise; B1's reassignment count
+    and counts bitwise the plain counts of its own assignment.  B1's sums
+    are held to fp64 sums of that assignment within rtol 1e-5: at these
+    shapes a cluster holds 10^4 to 10^6 rows, and the plain segment sum
+    (fp32 ``index_add_``, atomics in any order) rounds past rtol 1e-5
+    there, so it is no reference for them.  Returns the kernel's and the
+    plain segment sum's max relative errors against fp64."""
+    k = c.shape[0]
+    L2 = D.DistanceMetric.L2
+    every = rows is None
+    if every:
+        xs, ref_a, ref_best, _ch = (x, *K.assign_only_pass_reference(
+            x, valid, prev, c, n_clusters=k, metric=L2))
+        got_a, got_best = b1[0], b1[1]
+    else:
+        xs = x[rows]
+        ref_a, ref_best, _ch = K.assign_only_pass_reference(
+            xs, valid[rows], prev[rows], c, n_clusters=k, metric=L2)
+        got_a, got_best = b1[0][rows], b1[1][rows]
+    differ = torch.nonzero(got_a != ref_a).squeeze(1)
+    off_ties = int((~K.near_ties(xs[differ], c, L2)).sum()) \
+        if differ.numel() else 0
+    if off_ties:
+        raise AssertionError("%s: %d assignments differ from the plain "
+                             "twin's off ties" % (label, off_ties))
+    same = got_a == ref_a
+    # |c|^2 - 2 x.c cancels to near 0 where |c|^2 ~ 2 x.c (blobs at f=8):
+    # there an ulp of the cancelled terms is past 1e-5 of the score, so
+    # the card test's tolerance, rtol 1e-5 plus 1e-6 of |x|^2 + |c|^2
+    # (tests/test_torch_kernels.py:_assert_best_close)
+    c_sq = torch.cat([D.row_sq_norms(c), c.new_zeros(1)])   # id k: invalid
+    size = D.row_sq_norms(xs[same].float()) + c_sq[ref_a[same].long()]
+    gap = (got_best[same] - ref_best[same]).abs()
+    bad = int((gap > 1e-5 * ref_best[same].abs() + 1e-6 * size).sum())
+    if bad:
+        raise AssertionError("%s: %d best scores past rtol 1e-5 + 1e-6 (|x|^2"
+                             " + |c|^2) of the plain twin's" % (label, bad))
+    best_err = float(gap.max())
+    del xs, ref_a, ref_best, got_a, got_best, same, size, gap
+    if not (torch.equal(b1[0], b2[0]) and torch.equal(b1[1], b2[1])
+            and int(b1[4]) == int(b2[2])):
+        raise AssertionError("%s: B1 and B2 differ" % label)
+    if int(b1[4]) != int((b1[0] != prev).sum()):
+        raise AssertionError("%s: changed differs from the plain count of "
+                             "B1's assignment" % label)
+    sums_own, counts_own = K.segment_sum_reference(x, b1[0], k)
+    if not torch.equal(b1[3], counts_own):
+        raise AssertionError("%s: B1 counts differ from a bincount of its "
+                             "assignment" % label)
+    sums64 = fp64_sums(x, b1[0], k)
+    atol = 1e-5 * float(x.float().abs().mean())
+    torch.testing.assert_close(b1[2].double(), sums64, rtol=1e-5, atol=atol)
+
+    def rel64(sums):
+        return float(((sums.double() - sums64).abs()
+                      / sums64.abs().clamp(min=atol)).max())
+    held = {"max_rel_err": rel64(b1[2]), "plain_max_rel_err": rel64(sums_own)}
+    for name in ("fused_lloyd_pass", "assign_only_pass"):
+        errs[name] = max(errs[name], best_err)
+    plan = K.segment_plan(x.shape[0], x.shape[1], k, x.element_size())
+    print("%s: B1 and B2 held against the plain twin on %s rows: "
+          "assignments equal off ties (%d near-tie rows differ), max |d "
+          "best| %.3g; B1 == B2 bitwise; B1 counts bitwise a bincount of "
+          "its assignment (largest cluster %d rows); B1 sums within rtol "
+          "1e-5 of fp64 sums of its assignment (max relative error %.3g; "
+          "the plain segment sum's %.3g; %d chunks of %d rows)"
+          % (label, "all %d" % x.shape[0] if every else "%d sampled"
+             % rows.numel(), differ.numel(), best_err, int(b1[3].max()),
+             held["max_rel_err"], held["plain_max_rel_err"],
+             -(-x.shape[0] // plan.chunk), plan.chunk), flush=True)
+    return held
+
+
+def check_result(x, k, c, a, metric, device=0, rows=None):
     """Centroids finite or NaN rows of empty clusters (never assigned),
     assignments in [0, k), and equal to the plain assignment against the
     centroids they were computed with, off near-ties.  For fp32 those are
@@ -430,6 +554,9 @@ def check_result(x, k, c, a, metric, device=0):
     there the check restarts one iteration from the returned centroids
     through the same public call (with the same ``device`` mask, so over
     the same shards), whose assignment is computed against exactly them.
+    ``rows`` (a sorted sample of row ids, :func:`sample_rows`) limits the
+    plain argmin and the near-tie exemption to those rows: over all rows
+    they hold an (n, k) fp32 score matrix, 33 GB at 167,772,160 x 50.
     Returns (empty clusters, near-tie rows that differ)."""
     nan_rows = torch.isnan(c).any(dim=1)
     if not bool((torch.isnan(c).all(dim=1) | torch.isfinite(c).all(dim=1))
@@ -443,6 +570,8 @@ def check_result(x, k, c, a, metric, device=0):
     if c.dtype != torch.float32:
         _c, a = kmeans_cuda(x, k, init=c_used, tolerance=0.0, yinyang_t=0,
                             max_iterations=1, device=device)
+    if rows is not None:
+        x, a = x[rows], a[rows]
     valid = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
     ref, _best, _ch = K.assign_only_pass_reference(
         x, valid, a, c_used, n_clusters=k, metric=metric)
@@ -768,21 +897,28 @@ FORCED_SCHEDULES = (
 )
 
 
+@contextlib.contextmanager
+def knobs(**values):
+    """``kmcuda_torch.config`` values set for the block, then restored."""
+    saved = {key: getattr(config, key) for key in values}
+    try:
+        for key, val in values.items():
+            setattr(config, key, val)
+        yield
+    finally:
+        for key, val in saved.items():
+            setattr(config, key, val)
+
+
 def forced_schedules(label, x, k, **kw):
     """Yinyang under each of FORCED_SCHEDULES against Lloyd, bitwise
     (assignments, centroids, iteration lines)."""
     ll, ll_log, _n, _m = run_marked(lambda: kmeans_cuda(
         x, k, yinyang_t=0, verbosity=1, **kw))
-    for name, knobs in FORCED_SCHEDULES:
-        saved = {key: getattr(config, key) for key in knobs}
-        try:
-            for key, val in knobs.items():
-                setattr(config, key, val)
+    for name, values in FORCED_SCHEDULES:
+        with knobs(**values):
             yy, yy_log, _n, marks = run_marked(lambda: kmeans_cuda(
                 x, k, yinyang_t=0.1, verbosity=2, **kw))
-        finally:
-            for key, val in saved.items():
-                setattr(config, key, val)
         if len(marks) != 2:
             raise AssertionError("%s, %s: the Yinyang loop was not entered"
                                  % (label, name))
@@ -1009,12 +1145,31 @@ def main() -> int:
     for name in ("fused_lloyd_pass", "assign_only_pass"):
         total[name] += md_counts[name]
     knn["launches"] += md_counts["knn_walk"]
+    del x
+
+    scale = scale_phase(tag, errs)
+    for name in ("fused_lloyd_pass", "assign_only_pass"):
+        total[name] += scale["launches"][name]
+    knn["launches"] += scale["launches"]["knn_walk"]
+    knn["max_abs_err"] = max(knn["max_abs_err"], scale["walk_err"])
+    knn["k16384"] = {**scale["walk"], "library_ms": None}
 
     # top-level numbers at the headline shape (100K x 256 fp32, k=1024);
-    # "bf16_1m" the same at 1M x 256 bf16; B1 also carries its segment sum
+    # "bf16_1m" the same at 1M x 256 bf16, "scale_8m_bf16" at bench.py's
+    # 8M x 256 bf16 and "scale_167m_fp32" at the overflow run's 167,772,160
+    # x 8 fp32, k=50; B1 also carries its segment sum, and at the scale
+    # shapes (and "scale_9m_bf16", past 2**31 elements) its sums' and the
+    # plain segment sum's max relative errors against fp64 sums, which
+    # are the reference there ("sums_vs_fp64")
     def numbers(t):
         return {key: t[key] for key in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")}
+                                        "bound_by", "library_ms",
+                                        "sums_vs_fp64") if key in t}
+
+    def shapes(name):
+        return {"bf16_1m": numbers(times_bf16[name]),
+                "scale_8m_bf16": numbers(scale["times_8m"][name]),
+                "scale_167m_fp32": numbers(scale["times_167m"][name])}
 
     kernels = []
     for name, line in (("fused_lloyd_pass", 81), ("assign_only_pass", 127)):
@@ -1024,13 +1179,13 @@ def main() -> int:
             "replaces": "kmcuda_tpu/ops/assign_pallas.py:%d" % line,
             "launches": total[name], "max_abs_err": errs[name],
             **numbers(times[name]), "library": times[name]["library"],
-            "shape": "100000x256 fp32 k=1024",
-            "bf16_1m": numbers(times_bf16[name])}
+            "shape": "100000x256 fp32 k=1024", **shapes(name)}
         if name == "fused_lloyd_pass":
+            entry["scale_9m_bf16"] = {"sums_vs_fp64": scale["held_9m"]}
             entry["segment_sum"] = {
                 **numbers(times["segment_sum"]),
                 "library": times["segment_sum"]["library"],
-                "bf16_1m": numbers(times_bf16["segment_sum"])}
+                **shapes("segment_sum")}
         kernels.append(entry)
     kernels.append({
         "name": "knn_walk", "route": "cuda",
@@ -1401,6 +1556,23 @@ def _reset_launches():
     KK.reset_launch_counts()
 
 
+def timed_call(fn):
+    """``fn()`` with stdout captured, the launch counts set to 0 and the
+    peak-memory count reset to what is allocated now; returns (result,
+    log, wall s, launches, peak bytes allocated)."""
+    _reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    return (out, buf.getvalue(), wall, _launches(),
+            torch.cuda.max_memory_allocated())
+
+
 def memcpy_bytes(trace_path) -> dict:
     """Copies of a ``torch.profiler`` Chrome trace by direction: {"HtoD":
     [count, bytes, largest], ...}, from its ``gpu_memcpy`` events."""
@@ -1658,22 +1830,15 @@ def logical_shards(d):
 
 
 def sharded(fn, d):
-    """``fn(mask)`` on ``d`` logical shards, stdout captured, the launch
-    counts set to 0 first; returns (result, log, wall s, launches).  A
-    log at verbosity 2 must hold one plan line per shard."""
-    _reset_launches()
-    buf = io.StringIO()
-    with logical_shards(d) as mask, contextlib.redirect_stdout(buf):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn(mask)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    log = buf.getvalue()
+    """``fn(mask)`` on ``d`` logical shards (:func:`timed_call`); returns
+    (result, log, wall s, launches).  A log at verbosity 2 must hold one
+    plan line per shard."""
+    with logical_shards(d) as mask:
+        out, log, wall, launches, _peak = timed_call(lambda: fn(mask))
     plans = [l for l in log.splitlines() if l.startswith("plan: ")]
     if plans and len(plans) != d:
         raise AssertionError("%d plan lines on %d shards" % (len(plans), d))
-    return out, log, wall, _launches()
+    return out, log, wall, launches
 
 
 def check_count_contract(label, one, many):
@@ -2014,6 +2179,329 @@ def real_devices_phase(tag, x, xk, c, a, one):
           "kNN 1M 16-NN %.4f s, %d fp64 tie rows against one card"
           % (tag, n_dev, runs[0][2], runs[1][2], empty, ties, contract,
              knn_wall, tie_rows), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's scale tier: its largest documented shapes
+
+#: the reference's overflow run, tests/test_scale.py:35-70: 5.4 GB of fp32
+OVERFLOW = dict(n=167_772_160, f=8, k=50)
+#: bench.py:383-439's 8M config: 4 GB of bf16
+BENCH_8M = dict(n=8_000_000, f=256, k=1024)
+#: n * f = 2.304e9 elements: rows from 2**31 // f = 8,388,608 on have
+#: row offsets (row * f) past 2**31
+PAST_2_31 = dict(n=9_000_000, f=256, k=1024)
+#: tests/test_scale.py:97-133: k past KNN_TOUR_MAX_K, 2 rows per cluster
+KNN_LARGE_K = dict(n=32_768, f=8, k=16_384, kn=4)
+#: tests/test_scale.py:136-150: k=2048 with Yinyang
+YY_LARGE_K = dict(n=8192, f=32, k=2048)
+
+
+def sample_rows(n, count=1 << 16, edge=256):
+    """Sorted distinct row ids on the card: the first and last ``edge``
+    rows and a stride of about ``count`` across the rest."""
+    rows = torch.cat([torch.arange(min(edge, n)),
+                      torch.arange(0, n, max(1, n // count)),
+                      torch.arange(max(0, n - edge), n)])
+    return torch.unique(rows).cuda()
+
+
+def rows_past_offsets(n, f, count=1 << 16, edge=256):
+    """Sorted distinct row ids: ``count`` / 2 strided below the first row
+    whose offset row * f reaches 2**31, as many from it on, and the last
+    ``edge`` rows."""
+    first = 2**31 // f
+    half = count // 2
+    rows = torch.cat([torch.arange(0, first, max(1, first // half)),
+                      torch.arange(first, n, max(1, (n - first) // half)),
+                      torch.arange(max(0, n - edge), n)])
+    return torch.unique(rows).cuda()
+
+
+def require_launched(label, launches, names):
+    for name in names:
+        if launches[name] == 0:
+            raise AssertionError("%s: %s never launched" % (label, name))
+
+
+def gb(nbytes) -> str:
+    return "%.2f GB" % (nbytes / 1e9)
+
+
+def overflow_samples(seed=3):
+    """tests/test_scale.py:44-57's samples on the card: 40 blobs, centers
+    U(0, 1) * 8, plus 0.3 N(0, 1), made in 8 slabs into one buffer."""
+    n, f = OVERFLOW["n"], OVERFLOW["f"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    centers = torch.rand(40, f, generator=g, device="cuda") * 8.0
+    x = torch.empty((n, f), device="cuda")
+    slab = n // 8
+    for i in range(8):
+        which = torch.randint(0, 40, (slab,), generator=g, device="cuda")
+        x[i * slab:(i + 1) * slab] = centers[which] + 0.3 * torch.randn(
+            slab, f, generator=g, device="cuda")
+    return x
+
+
+def overflow_run(tag):
+    """The reference's overflow configuration through ``kmeans_cuda``:
+    more than 2**32 bytes of samples, assignments in [0, k), finite
+    centroids, the argmin on a row sample.  Returns the launch counts."""
+    n, f, k = OVERFLOW["n"], OVERFLOW["f"], OVERFLOW["k"]
+    x = overflow_samples()
+    if x.nbytes <= 2**32:
+        raise AssertionError("overflow run: %d bytes of samples" % x.nbytes)
+    (c, a), log, wall, launches, peak = timed_call(lambda: kmeans_cuda(
+        x, k, init="k-means++", seed=3, tolerance=0.142, yinyang_t=0,
+        verbosity=1, donate_samples=True))
+    print(log, end="", flush=True)
+    require_launched("overflow run", launches, ("fused_lloyd_pass",))
+    if c.shape != (k, f) or a.shape != (n,) or not bool(
+            torch.isfinite(c).all()):
+        raise AssertionError("overflow run: centroids not (%d, %d) finite"
+                             % (k, f))
+    rows = sample_rows(n)
+    empty, ties = check_result(x, k, c, a, D.DistanceMetric.L2, rows=rows)
+    print("%s scale: overflow run %dx%d fp32 k=%d (tests/test_scale.py:35; "
+          "k-means++ seed 3, tolerance 0.142): %d bytes of samples > 2**32; "
+          "wall %.4f s, %d iterations, peak memory %s; launches %s; "
+          "assignments in [0, %d), centroids finite, the argmin on %d "
+          "sampled rows (%d empty clusters, %d near-tie rows differ)"
+          % (tag, n, f, k, x.nbytes, wall, count_iterations(log), gb(peak),
+             launches, k, rows.numel(), empty, ties), flush=True)
+    del x, c, a
+    return launches
+
+
+def bench_8m_run(tag):
+    """bench.py:383-439 on the card: one warm run, one timed run and one
+    timed run of one iteration, with bench.py's five metrics; k-means++
+    alone on the same data; the argmin on a row sample.  Returns the timed
+    run's launch counts and the metrics."""
+    n, f, k = BENCH_8M["n"], BENCH_8M["f"], BENCH_8M["k"]
+    g = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.rand(n, f, generator=g, device="cuda").to(torch.bfloat16)
+    kw = dict(init="k-means++", seed=17, tolerance=0.01, yinyang_t=0,
+              verbosity=1)
+
+    def run(cap=None):
+        return timed_call(lambda: kmeans_cuda(x, k, max_iterations=cap,
+                                              **kw))
+
+    run()
+    (c, a), log, s8m, launches, peak = run()
+    print(log, end="", flush=True)
+    require_launched("8M run", launches, ("fused_lloyd_pass",
+                                          "assign_only_pass"))
+    iters = count_iterations(log)
+    s_init = run(cap=1)[2]
+    pp_s, c_pp = timed_init(x, k, D.DistanceMetric.L2,
+                            I.InitMethod.PLUS_PLUS, 17)
+    # one k-means++ step's two halves: the distance pass over every row
+    # (an fp32 product of the bf16 rows) and the weighted draw
+    p = prepare(x, k, D.DistanceMetric.L2, x.device, Logger(0))
+    dist_ms = time_ms(lambda: D.point_distances(p.x, p.x_sq, c_pp[1],
+                                                D.DistanceMetric.L2), 5)
+    w = D.point_distances(p.x, p.x_sq, c_pp[1], D.DistanceMetric.L2)
+    u = torch.rand(1, device="cuda")
+    draw_ms = time_ms(lambda: I._weighted_draw(w, u), 5)
+    del p, w, c_pp
+    metrics = {
+        "kmeans_8mx256_k1024_bf16_tol1pct_wall": (s8m, "s"),
+        "kmeans_8mx256_iterations": (iters, "iterations"),
+        "kmeans_8mx256_s_per_iteration": (s8m / max(iters, 1), "s"),
+        "kmeans_8mx256_prep_init_wall": (s_init, "s"),
+        "kmeans_8mx256_loop_s_per_iteration": (
+            max(s8m - s_init, 0.0) / max(iters - 1, 1), "s"),
+    }
+    for name, (value, unit) in metrics.items():
+        print("%s %s" % (tag, json.dumps({"metric": name, "value": value,
+                                           "unit": unit})), flush=True)
+    rows = sample_rows(n)
+    empty, ties = check_result(x, k, c, a, D.DistanceMetric.L2, rows=rows)
+    print("%s scale: bench.py 8M config %dx%d bf16 k=%d (k-means++ seed 17, "
+          "tolerance 0.01): wall %.4f s, %d iterations, peak memory %s; "
+          "launches %s; k-means++ alone %.4f s (%.3f ms per step: its "
+          "distance pass %.3f ms, its draw %.3f ms); the argmin, restarted "
+          "from the returned centroids, on %d sampled rows (%d empty "
+          "clusters, %d near-tie rows differ)"
+          % (tag, n, f, k, s8m, iters, gb(peak), launches, pp_s,
+             1e3 * pp_s / (k - 1), dist_ms, draw_ms, rows.numel(), empty,
+             ties), flush=True)
+    del x, c, a
+    return launches, {name: v for name, (v, _u) in metrics.items()}
+
+
+def past_2_31_run(tag, errs):
+    """9M x 256 bf16, n * f past 2**31: B1 and B2 once each from one
+    random start, held by :func:`hold_pass` on rows below and past the
+    first row offset of 2**31; then ``kmeans_cuda``, 10 iterations, with
+    the argmin on a row sample.  Returns the launch counts of both and
+    B1's sums against fp64."""
+    n, f, k = PAST_2_31["n"], PAST_2_31["f"], PAST_2_31["k"]
+    L2 = D.DistanceMetric.L2
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.rand(n, f, generator=g, device="cuda").to(torch.bfloat16)
+    if x.numel() <= 2**31 or (n - 1) * f < 2**31:
+        raise AssertionError("past 2**31: %d elements" % x.numel())
+    valid = torch.ones(n, dtype=torch.bool, device="cuda")
+    prev = torch.randint(0, k + 1, (n,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    c0 = x[torch.randperm(n, generator=g, device="cuda")[:k]].float()
+    kw = dict(n_clusters=k, metric=L2)
+    (b1, b2), _log, pass_s, passes, _peak = timed_call(lambda: (
+        K.fused_lloyd_pass(x, valid, prev, c0, **kw),
+        K.assign_only_pass(x, valid, prev, c0, **kw)))
+    require_launched("past 2**31", passes, ("fused_lloyd_pass",
+                                            "assign_only_pass"))
+    rows = rows_past_offsets(n, f)
+    past = int((rows >= 2**31 // f).sum())
+    held = hold_pass("%s scale: past 2**31 elements %dx%d bf16 k=%d (%d "
+                     "elements; B1 and B2 from one random start in %.4f s; "
+                     "%d sampled rows from row %d on, row * f >= 2**31)"
+                     % (tag, n, f, k, x.numel(), pass_s, past, 2**31 // f),
+                     x, valid, prev, c0, b1, b2, errs, rows=rows)
+    del b1, b2
+    (c, a), log, wall, launches, peak = timed_call(lambda: kmeans_cuda(
+        x, k, init="random", seed=1, tolerance=0.002, yinyang_t=0,
+        max_iterations=10, verbosity=1))
+    print(log, end="", flush=True)
+    require_launched("past 2**31 k-means", launches, ("fused_lloyd_pass",))
+    rows = sample_rows(n)
+    empty, nties = check_result(x, k, c, a, L2, rows=rows)
+    print("%s scale: past 2**31 elements kmeans_cuda %dx%d bf16 k=%d "
+          "(random init seed 1, tolerance 0.002, 10 iterations at most): "
+          "wall %.4f s, %d iterations, peak memory %s; launches %s; the "
+          "argmin, restarted from the returned centroids, on %d sampled "
+          "rows (%d empty clusters, %d near-tie rows differ)"
+          % (tag, n, f, k, wall, count_iterations(log), gb(peak), launches,
+             rows.numel(), empty, nties), flush=True)
+    del x, valid, prev, c0, c, a
+    return {name: passes[name] + launches[name] for name in launches}, held
+
+
+def knn_large_k_run(tag):
+    """``knn_cuda`` on tests/test_scale.py:104-115's fixture (32,768 x 8,
+    k=16,384 > KNN_TOUR_MAX_K, so the projection relabel), each row
+    assigned its nearest centroid on the card: tie-aware recall@4 of 1.0
+    over every row against a brute force adjudicated in fp64, and the walk
+    against its plain twin over the whole layout.  Returns (launches, the
+    walk's max error, its times)."""
+    s = KNN_LARGE_K
+    n, f, k, kn = s["n"], s["f"], s["k"], s["kn"]
+    L2 = D.DistanceMetric.L2
+    if k <= config.KNN_TOUR_MAX_K:
+        raise AssertionError("k=%d takes the greedy tour" % k)
+    rng = np.random.RandomState(7)
+    cents_np = rng.rand(k, f).astype(np.float32) * 100.0
+    which = rng.randint(0, k, size=n)
+    x = torch.from_numpy((cents_np[which] + 0.05 * rng.randn(n, f))
+                         .astype(np.float32)).cuda()
+    cents = torch.from_numpy(cents_np).cuda()
+    c_sq = D.row_sq_norms(cents)
+    a = torch.cat([D.scores(x[r:r + 1024], cents.T, c_sq, L2).argmin(dim=1)
+                   for r in range(0, n, 1024)]).int()
+    nb, log, wall, launches, peak = timed_call(lambda: knn_cuda(
+        kn, x, cents, a, verbosity=1))
+    print(log, end="", flush=True)
+    require_launched("kNN k=16384", launches, ("knn_walk",))
+    if nb.shape != (n, kn) or int(nb.min()) < 0 or int(nb.max()) >= n or \
+            bool((nb == torch.arange(n, device="cuda")[:, None]).any()):
+        raise AssertionError("kNN k=16384: neighbours out of range or self")
+    recall, tie_recall = check_recall(x, nb, kn, nq=n)
+    if tie_recall != 1.0:
+        raise AssertionError("kNN k=16384: tie-aware recall %.6f != 1"
+                             % tie_recall)
+    plan = knn_plan(x, cents, a, L2)
+    out, args, kw = check_walk("%dx%d fp32 k=%d L2 kn=%d, projection "
+                               "relabel" % (n, f, k, kn), plan, k, kn, L2, 0,
+                               plan.m_total // plan.q_chunk)
+    walk_times = time_walk(tag, args, kw)
+    print("%s scale: kNN %dx%d fp32 k=%d %d-NN (tests/test_scale.py:97): "
+          "wall %.4f s, peak memory %s, examined fraction %.6f, knn_walk "
+          "launches %d; recall@%d %.6f, tie-aware %.6f over all %d rows"
+          % (tag, n, f, k, kn, wall, gb(peak), fraction(log),
+             launches["knn_walk"], kn, recall, tie_recall, n), flush=True)
+    del x, cents, a, nb, plan, args
+    return launches["knn_walk"], out["max_abs_err"], walk_times
+
+
+def filter_passes(log: str) -> list:
+    """P of each ``yinyang: C candidates, P samples passed the global
+    filter`` line of a verbosity-2 log, in order."""
+    return [int(l.split()[3]) for l in log.splitlines()
+            if l.endswith(" samples passed the global filter")]
+
+
+def yinyang_large_k_run(tag):
+    """tests/test_scale.py:136-150 on the card: 8192 x 32 uniform, k=2048,
+    k-means++ seed 2, Yinyang == Lloyd bitwise: at the JAX test's tolerance
+    0.01 and 3 iterations, whose one Yinyang iteration is a dense refresh
+    that filters no row; then at tolerance 0 and 8 iterations, where a
+    sparse iteration must filter rows.  The budget gate would hand so few
+    iterations to Lloyd before any grouping, so it is off here
+    (``YY_MIN_REMAINING`` 0), as the JAX suite's conftest sets it.
+    Returns the launch counts of the four runs."""
+    s = YY_LARGE_K
+    n = s["n"]
+    x = torch.from_numpy(np.random.RandomState(0).rand(n, s["f"])
+                         .astype(np.float32)).cuda()
+    out = []
+    for tol, iters in ((0.01, 3), (0.0, 8)):
+        with knobs(YY_MIN_REMAINING=0):
+            (_c, a), log, yy_n, ll_n = yinyang_vs_lloyd(
+                "%s scale: k=%d %dx%d fp32 Yinyang (tests/test_scale.py:136"
+                "; tolerance %g, %d iterations at most)"
+                % (tag, s["k"], n, s["f"], tol, iters), x, s["k"],
+                D.DistanceMetric.L2, init="k-means++", seed=2, tolerance=tol,
+                max_iterations=iters)
+        filled = int(torch.unique(a).numel())
+        if filled <= s["k"] // 2:
+            raise AssertionError("k=2048: %d clusters filled" % filled)
+        passed = filter_passes(log)
+        if iters > 3 and not (passed and min(passed) < n):
+            raise AssertionError("k=2048: no Yinyang iteration filtered a "
+                                 "row (%s of %d passed)" % (passed, n))
+        print("k=2048 Yinyang (%d iterations at most): %d of %d clusters "
+              "filled; rows passing the global filter per Yinyang "
+              "iteration %s of %d" % (iters, filled, s["k"], passed, n),
+              flush=True)
+        out += [yy_n, ll_n]
+    return out
+
+
+def scale_phase(tag, errs):
+    """The JAX package's scale tier, each run's data made on the card from
+    a seed and deleted before the next: the reference's overflow run, the
+    kernels timed and held at its shape, bench.py's 8M config, the kernels
+    timed and held at its shape, B1/B2 and a k-means run past 2**31
+    elements, kNN at k=16,384 and Yinyang at k=2048.  Returns the phase's
+    launch counts, the kernel times at the two shapes, B1's sums against
+    fp64 past 2**31, and B3's numbers."""
+    counts = {name: 0 for name in _launches()}
+
+    def add(launches):
+        for name, count in launches.items():
+            counts[name] += count
+
+    t = time.perf_counter()
+    add(overflow_run(tag))
+    times_167m = time_kernels(tag, OVERFLOW, torch.float32, 2, errs)
+    launches, metrics = bench_8m_run(tag)
+    add(launches)
+    times_8m = time_kernels(tag, BENCH_8M, torch.bfloat16, 2, errs)
+    launches, held_9m = past_2_31_run(tag, errs)
+    add(launches)
+    walk_launches, walk_err, walk_times = knn_large_k_run(tag)
+    counts["knn_walk"] += walk_launches
+    for launches in yinyang_large_k_run(tag):
+        add(launches)
+    require_launched("scale phase", counts, counts)
+    print("%s scale phase: %.1f s; launches %s"
+          % (tag, time.perf_counter() - t, counts), flush=True)
+    return {"launches": counts, "times_167m": times_167m,
+            "times_8m": times_8m, "held_9m": held_9m, "metrics": metrics,
+            "walk_err": walk_err, "walk": walk_times}
 
 
 if __name__ == "__main__":

@@ -37,7 +37,11 @@ STAGNATION_PATIENCE = 50
 
 # ---- size limits (the reference's uint32 layout constraints) -------------
 
-MAX_SAMPLES = 2**32 - 1
+#: Rows are int32 wherever the port indexes them (the segment sum's
+#: cluster-sorted permutation, the kNN positions and neighbour tensors), so
+#: n stops below 2**31, where the reference's uint32 layout stops below
+#: 2**32.  Row *offsets* (row * features) are 64-bit everywhere.
+MAX_SAMPLES = 2**31 - 1
 #: Assignments are int32 tensors here (torch has almost no uint32
 #: arithmetic) and id == k marks an invalid row, so k stays below 2**31 - 1.
 MAX_CLUSTERS = 2**31 - 2

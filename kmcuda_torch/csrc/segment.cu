@@ -312,8 +312,9 @@ int launch_segment(const void *x, const void *aid, void *iscratch,
                    int64_t tx, int64_t n_iscratch, int64_t n_fscratch,
                    cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
-  if (n < 1 || f < 1 || k < 1 || rows < k || rows % 32 || chunk < 1 ||
-      tx < 1 || THREADS % tx)
+  // row ids and positions are int32: n < 2^31
+  if (n < 1 || n > INT32_MAX || f < 1 || k < 1 || rows < k || rows % 32 ||
+      chunk < 1 || tx < 1 || THREADS % tx)
     return (int)cudaErrorInvalidValue;
   const int64_t nb = (n + rows - 1) / rows;
   const int64_t nchunks = (n + chunk - 1) / chunk;
@@ -368,8 +369,8 @@ extern "C" {
 // reduction chunk, `tx` threads across the features (a divisor of 256).
 // `iscratch` holds n_iscratch int32 and `fscratch` n_fscratch floats; the
 // cut needs ceil(n / rows) * k + k + 1 + 2 n and 2 * ceil(n / chunk) * f.
-// Returns cudaErrorInvalidValue for a cut it does not take or scratch too
-// short for it, else the first CUDA error code of the six launches, or 0.
+// Returns cudaErrorInvalidValue for n >= 2^31 rows, a cut it does not take
+// or scratch too short for it, else the first CUDA error code of the six launches, or 0.
 int kmt_segment_sum(const void *x, const void *aid, void *iscratch,
                     void *fscratch, void *sums, void *counts, int64_t n,
                     int64_t f, int64_t k, int64_t rows, int64_t chunk,

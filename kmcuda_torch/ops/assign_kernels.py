@@ -20,6 +20,7 @@ import typing
 
 import torch
 
+from kmcuda_torch import config
 from kmcuda_torch.ops import _build
 from kmcuda_torch.ops import distance as D
 from kmcuda_torch.ops.assign import pad_clusters, rescore_table
@@ -56,8 +57,10 @@ def _check_args(x, valid, prev_assign, centroids, k: int) -> None:
             "x must be (n, f) float32 or bfloat16, got %s %s"
             % (tuple(x.shape), x.dtype))
     n, f = x.shape
-    if n < 1 or not 1 <= k < 2**31 - 1:
-        raise KMTPUInvalidArguments("need n >= 1 and 1 <= k < 2**31 - 1")
+    if not 1 <= n <= config.MAX_SAMPLES or not 1 <= k < 2**31 - 1:
+        raise KMTPUInvalidArguments(
+            "need 1 <= n <= %d (the segment sum's row ids are int32) and 1 "
+            "<= k < 2**31 - 1, got n=%d, k=%d" % (config.MAX_SAMPLES, n, k))
     if valid.shape != (n,) or valid.dtype != torch.bool:
         raise KMTPUInvalidArguments("valid must be (n,) bool")
     if prev_assign.shape != (n,) or prev_assign.dtype != torch.int32:

@@ -25,7 +25,9 @@ def check_samples(samples):
         raise KMTPUInvalidArguments(
             "features_size must be <= %d" % config.MAX_FEATURES)
     if n > config.MAX_SAMPLES:
-        raise KMTPUInvalidArguments("too many samples")
+        raise KMTPUInvalidArguments(
+            "too many samples: %d > %d (row ids are int32)"
+            % (n, config.MAX_SAMPLES))
     return n, features
 
 

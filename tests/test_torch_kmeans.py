@@ -301,7 +301,7 @@ def test_yinyang_request_runs_lloyd(samples, capsys):
 
 def test_cluster_id_limit():
     class Shape:
-        shape = (2**31, 1)
+        shape = (2**31 - 1, 1)       # the most rows (int32 row ids)
     with pytest.raises(KMTPUInvalidArguments):
         V.check_kmeans_args(Shape(), 2**31 - 1, 0.01, 0.0, None, 0)
     assert V.check_kmeans_args(Shape(), 2**31 - 2, 0.01, 0.0, None, 0)[2] \

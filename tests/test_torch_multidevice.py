@@ -322,6 +322,15 @@ def test_topology_cut_and_reductions():
     topo = Topology([CPU] * 3)
     assert topo.split(10) == [(0, 4), (4, 7), (7, 10)]
     assert topo.split(2) == [(0, 1), (1, 2)]
+    # the reference's overflow run, 167,772,160 rows (tests/test_scale.py:
+    # 27), over 1 and 4 devices: contiguous, no padding, within one row
+    n = 167_772_160
+    for d in (1, 4):
+        ranges = Topology([CPU] * d).split(n)
+        assert len(ranges) == d and ranges[0][0] == 0 and ranges[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        sizes = [stop - start for start, stop in ranges]
+        assert max(sizes) - min(sizes) <= 1
     parts = topo.scatter(torch.arange(10.0), topo.split(10))
     assert [p.numel() for p in parts] == [4, 3, 3]
     assert torch.equal(topo.gather(parts), torch.arange(10.0))
