@@ -93,6 +93,16 @@ rows.  Each
 run prints its wall, iterations, peak memory and launches.  The phase
 needs about 24 GB of card memory.
 
+The port's benchmark (``bench_phase``, last): ``python3 bench_torch.py``
+at full size in a process of its own, its lines echoed, after this
+process returns its cached card memory.  It must exit 0 with bench.py's
+final line (five keys, the headline, the 18 metrics in ``extra``, no
+``failed``), tie-aware recall@16 1.0, every wall positive, at least one 8M
+iteration and every kernel launched; its launches join the ``kernels``
+line.  The deep-tail, spherical, 8M and kNN data of the phases above, the
+headline samples and the recall check are ``bench_torch``'s fixtures, so
+one definition serves both.
+
 Prints the card's name and power limit beside every time, the smoke's
 wall, a JSON line of the kernels, and as its last line a JSON object with
 ``"ok": true``.  Any failure raises, so the exit code is non-zero; so it
@@ -129,10 +139,12 @@ Tolerances (kernel vs plain twin on the same tensors):
 
 import contextlib
 import ctypes
+import gc
 import io
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import sysconfig
@@ -156,6 +168,7 @@ from kmcuda_torch.ops.assign import pad_clusters
 from kmcuda_torch.parallel import devices as DEV
 from kmcuda_torch.parallel.devices import Topology
 from kmcuda_torch.utils.logging import Logger
+import bench_torch as B
 import roofline as R
 
 HEADLINE = dict(n=100_000, f=256, k=1024)
@@ -165,16 +178,9 @@ KNN_BENCH = dict(n=1_000_000, f=256, k=1024, kn=16)
 KNN_RAGGED = dict(n=100_003, f=250, k=1000, kn=10)
 KNN_WIDE = dict(n=16_384, f=2_560, k=16, kn=200)
 SPHERICAL = dict(n=1_000_000, f=256, k=1024, m=100)
-DEEP_TAIL = dict(n=2_000_000, f=256, k=1024)
 
 
-def card_line() -> str:
-    """``nvidia-smi``'s name and power limit of card 0."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout
-    return out.strip().splitlines()[0]
+card_line = B.card_line
 
 
 def make_inputs(n, f, k, dtype, metric, ragged, seed):
@@ -841,14 +847,11 @@ def bench_pair_phase(tag, x):
 
 
 def deep_tail_data():
-    """The deep-tail samples (bench.py:69-75, made on the card from seed 3)
-    and the centroids of 15 iterations from random init."""
-    n, f, k = DEEP_TAIL["n"], DEEP_TAIL["f"], DEEP_TAIL["k"]
-    g = torch.Generator(device="cuda").manual_seed(3)
-    centers = torch.rand(k, f, generator=g, device="cuda") * 2.0
-    which = torch.randint(0, k, (n,), generator=g, device="cuda")
-    x = centers[which] + 0.5 * torch.randn(n, f, generator=g, device="cuda")
-    del centers, which
+    """The deep-tail samples (``bench_torch.deep_tail_blobs``, made on the
+    card from seed 3) and the centroids of 15 iterations from random
+    init."""
+    k = B.size("deep_tail")[2]
+    x = B.deep_tail_blobs("cuda")
     c_tail, _a = kmeans_cuda(x, k, init="random", seed=3, tolerance=0.0,
                              yinyang_t=0.1, max_iterations=15)
     return x, c_tail
@@ -862,7 +865,7 @@ def deep_tail_phase(tag):
     both walls (min of 2, interleaved) and their ratio, the candidate and
     passed counts per iteration and the controller's decisions.  Returns
     the launch counts of both restarts."""
-    k = DEEP_TAIL["k"]
+    k = B.size("deep_tail")[2]
     x, c_tail = deep_tail_data()
     kw = dict(init=c_tail, tolerance=0.0, max_iterations=45)
     _out, log, yy_n, ll_n = yinyang_vs_lloyd(
@@ -943,9 +946,7 @@ def spherical_phase(tag):
     (bench.py:180-191); returns the call's launch counts."""
     s = SPHERICAL
     cos = D.DistanceMetric.COSINE
-    g = torch.Generator(device="cuda").manual_seed(7)
-    x = torch.randn(s["n"], s["f"], generator=g, device="cuda")
-    x = x / x.norm(dim=1, keepdim=True)
+    x = B.unit_rows("cuda")
     init_s, _ = timed_init(x, s["k"], cos, I.InitMethod.AFKMC2, 7, s["m"])
     K.reset_launch_counts()
     buf = io.StringIO()
@@ -1046,8 +1047,7 @@ def main() -> int:
     times_bf16 = time_kernels(tag, BF16_RUN, torch.bfloat16, 5)
 
     dev = torch.device("cuda")
-    g = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.rand(HEADLINE["n"], HEADLINE["f"], generator=g, device=dev)
+    x = B.uniform_rows(dev)
     g = torch.Generator(device="cuda").manual_seed(0)
     xb = torch.rand(BF16_RUN["n"], BF16_RUN["f"], generator=g,
                     device=dev).to(torch.bfloat16)
@@ -1154,6 +1154,11 @@ def main() -> int:
     knn["max_abs_err"] = max(knn["max_abs_err"], scale["walk_err"])
     knn["k16384"] = {**scale["walk"], "library_ms": None}
 
+    bench = bench_phase(tag)
+    for name in ("fused_lloyd_pass", "assign_only_pass"):
+        total[name] += bench[name]
+    knn["launches"] += bench["knn_walk"]
+
     # top-level numbers at the headline shape (100K x 256 fp32, k=1024);
     # "bf16_1m" the same at 1M x 256 bf16, "scale_8m_bf16" at bench.py's
     # 8M x 256 bf16 and "scale_167m_fp32" at the overflow run's 167,772,160
@@ -1240,9 +1245,7 @@ def blobs_on_card(n, f, k, seed, metric=D.DistanceMetric.L2, nan_rows=0):
     normalizes rows and centers; ``nan_rows`` random rows become NaN."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = torch.device("cuda")
-    centers = torch.rand(k, f, generator=g, device=dev) * 10.0
-    which = torch.randint(0, k, (n,), generator=g, device=dev)
-    x = centers[which] + 0.5 * torch.randn(n, f, generator=g, device=dev)
+    x, centers = B.blobs(g, n, f, k, 10.0)
     if metric == D.DistanceMetric.COSINE:
         x = x / x.norm(dim=1, keepdim=True)
         centers = centers / centers.norm(dim=1, keepdim=True)
@@ -1287,44 +1290,6 @@ def check_walk(label, plan, k, kn, metric, chunk_base, n_chunks):
              *out["edge_hits"], out["chunks_differ"], out["examined"],
              out["max_abs_err"]), flush=True)
     return out, args, kw
-
-
-def check_recall(x, nb, kn, nq=1024, seed=13):
-    """recall@kn and tie-aware recall of ``nb`` on nq random queries
-    against a chunked fp32 brute force on the card (TF32 off) with a 3 * kn
-    window, adjudicated in fp64 as bench.py:314-367 does: a returned slot
-    counts when its fp64 distance is within one fp32 tie window of the true
-    profile's slot."""
-    n = x.shape[0]
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    qi = torch.randperm(n, generator=g, device=x.device)[:nq]
-    kc = 3 * kn
-    x_sq = D.row_sq_norms(x)
-    exact = []
-    for s in range(0, nq, 256):
-        qb = qi[s:s + 256]
-        sq = x_sq[qb, None] + x_sq[None, :] - 2.0 * D.matmul_f32(x[qb], x.T)
-        sq[torch.arange(qb.numel(), device=x.device), qb] = float("inf")
-        exact.append(torch.topk(sq, kc, dim=1, largest=False).indices)
-        del sq
-    exact = torch.cat(exact)
-    got = nb[qi].long()
-    recall = float(np.mean([
-        len(set(e) & set(r)) / kn for e, r in zip(
-            exact[:, :kn].tolist(), got.tolist())]))
-    union = torch.cat([exact, got], dim=1)
-    d64 = torch.linalg.norm(
-        x[union].double() - x[qi].double()[:, None, :], dim=2)
-    order = torch.argsort(union, dim=1, stable=True)
-    srt = torch.gather(union, 1, order)
-    dup_sorted = torch.zeros_like(srt, dtype=torch.bool)
-    dup_sorted[:, 1:] = srt[:, 1:] == srt[:, :-1]
-    dup = torch.zeros_like(dup_sorted).scatter_(1, order, dup_sorted)
-    true_prof = torch.sort(torch.where(dup, float("inf"), d64),
-                           dim=1).values[:, :kn]
-    got_prof = torch.sort(d64[:, kc:], dim=1).values
-    ok = got_prof <= true_prof * (1.0 + 1e-5) + 1e-6
-    return recall, float(ok.double().mean())
 
 
 def time_walk(tag, args, kw, reps=3):
@@ -1431,7 +1396,7 @@ def knn_phase(tag):
           flush=True)
 
     # 3: exactness at 1M
-    recall, tie_recall = check_recall(x, nb, b["kn"])
+    recall, tie_recall = B.check_recall(x, nb, b["kn"])
     print("1M exactness: recall@16 %.6f, tie-aware recall@16 %.6f on 1024 "
           "queries" % (recall, tie_recall), flush=True)
     if tie_recall != 1.0:
@@ -1451,7 +1416,7 @@ def knn_phase(tag):
         torch.cuda.synchronize()
     frac_mc2 = fraction(buf.getvalue())
     walls = [wall_s(lambda: knn_cuda(b["kn"], x, c, a)) for _ in range(3)]
-    recall, tie_recall = check_recall(x, nb, b["kn"])
+    recall, tie_recall = B.check_recall(x, nb, b["kn"])
     print("%s wall knn_cuda %dx%d fp32 k=%d %d-NN, AFK-MC2-seeded clusters "
           "(k-means %d iterations, %.4f s): %.4f s (min of 3: %s), examined "
           "fraction %.6f (blob-center clusters: %.6f); recall@16 %.6f, "
@@ -1704,7 +1669,7 @@ def capi_handle_pipeline(tag):
             and np.array_equal(nbr, nb_ref.cpu().numpy().view(np.uint32))):
         raise AssertionError("capi handle pipeline differs from kmeans_cuda /"
                              " knn_cuda on CUDA tensors")
-    recall, tie_recall = check_recall(
+    recall, tie_recall = B.check_recall(
         x, torch.from_numpy(nbr.view(np.int32)).to(x.device), kn)
     if tie_recall != 1.0:
         raise AssertionError("capi handle pipeline: tie-aware recall %.6f"
@@ -2106,7 +2071,7 @@ def multidevice_phase(tag, x):
     frac = {d: fraction(knn[d][1]) for d in SHARD_COUNTS}
     ties = {d: neighbour_ties(xk, knn[d][0], knn[1][0]) for d in (2, 4)}
     equal_rows = int((knn[4][0] == knn[1][0]).all(dim=1).sum())
-    recall, tie_recall = check_recall(xk, knn[4][0], b["kn"])
+    recall, tie_recall = B.check_recall(xk, knn[4][0], b["kn"])
     if tie_recall != 1.0:
         raise AssertionError("kNN d=4: tie-aware recall %.6f != 1"
                              % tie_recall)
@@ -2279,8 +2244,7 @@ def bench_8m_run(tag):
     alone on the same data; the argmin on a row sample.  Returns the timed
     run's launch counts and the metrics."""
     n, f, k = BENCH_8M["n"], BENCH_8M["f"], BENCH_8M["k"]
-    g = torch.Generator(device="cuda").manual_seed(17)
-    x = torch.rand(n, f, generator=g, device="cuda").to(torch.bfloat16)
+    x = B.uniform_bf16_rows("cuda")
     kw = dict(init="k-means++", seed=17, tolerance=0.01, yinyang_t=0,
               verbosity=1)
 
@@ -2408,7 +2372,7 @@ def knn_large_k_run(tag):
     if nb.shape != (n, kn) or int(nb.min()) < 0 or int(nb.max()) >= n or \
             bool((nb == torch.arange(n, device="cuda")[:, None]).any()):
         raise AssertionError("kNN k=16384: neighbours out of range or self")
-    recall, tie_recall = check_recall(x, nb, kn, nq=n)
+    recall, tie_recall = B.check_recall(x, nb, kn, nq=n)
     if tie_recall != 1.0:
         raise AssertionError("kNN k=16384: tie-aware recall %.6f != 1"
                              % tie_recall)
@@ -2502,6 +2466,73 @@ def scale_phase(tag, errs):
     return {"launches": counts, "times_167m": times_167m,
             "times_8m": times_8m, "held_9m": held_9m, "metrics": metrics,
             "walk_err": walk_err, "walk": walk_times}
+
+
+# ---------------------------------------------------------------------------
+# The port's benchmark, as a user runs it
+
+#: seconds the bench may take (about 100 s on one H100)
+BENCH_TIMEOUT = 480
+#: bench.py's final-line keys
+BENCH_FINAL_KEYS = {"metric", "value", "unit", "vs_baseline", "extra"}
+
+
+def bench_phase(tag):
+    """``python3 bench_torch.py`` at full size in a process of its own,
+    with this process's cached card memory returned first; echoes its
+    lines.  Fails unless it exits 0 and its final line has bench.py's five
+    keys and headline, all 18 metrics in ``extra`` and no ``failed``,
+    tie-aware recall@16 1.0, every wall positive, at least one iteration
+    at 8M, and every kernel launched.  Returns the bench's launch counts
+    (its own ``kernel launches`` line)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = {key: val for key, val in os.environ.items()
+           if key not in ("KMTPU_BENCH_SMOKE", "KMTPU_BENCH_CPU")}
+    t = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "bench_torch.py"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, start_new_session=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        out, err = proc.communicate(timeout=BENCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)     # the bench and its children
+        out, err = proc.communicate()
+        print(out + err, flush=True)
+        raise AssertionError("bench_torch.py ran past %d s" % BENCH_TIMEOUT)
+    wall = time.perf_counter() - t
+    for line in out.splitlines():
+        print("bench_torch: %s" % line, flush=True)
+    if proc.returncode != 0:
+        print(err, flush=True)
+        raise AssertionError("bench_torch.py exited %d" % proc.returncode)
+    lines = out.strip().splitlines()
+    final = json.loads(lines[-1])
+    extra = final["extra"]
+    if set(final) != BENCH_FINAL_KEYS or final["metric"] != B.HEADLINE:
+        raise AssertionError("bench_torch.py: final line is not bench.py's: "
+                             "%s" % sorted(final))
+    if set(extra) != set(B.METRICS):
+        raise AssertionError("bench_torch.py: extra holds %s, not bench.py's "
+                             "18 metrics" % sorted(extra))
+    if extra["knn16_1mx256_tie_aware_recall_at_16"]["value"] != 1.0:
+        raise AssertionError("bench_torch.py: tie-aware recall@16 %s" %
+                             extra["knn16_1mx256_tie_aware_recall_at_16"])
+    walls = {name: rec["value"] for name, rec in extra.items()
+             if rec["unit"] == "s"}
+    walls[final["metric"]] = final["value"]
+    if not all(v > 0 for v in walls.values()):
+        raise AssertionError("bench_torch.py: a wall is not positive: %s"
+                             % walls)
+    if extra["kmeans_8mx256_iterations"]["value"] < 1:
+        raise AssertionError("bench_torch.py: no 8M iteration")
+    launches = json.loads([l for l in lines if l.startswith(
+        "kernel launches ")][-1][len("kernel launches "):])
+    require_launched("bench_torch.py", launches, launches)
+    print("%s bench phase (python3 bench_torch.py, full size): %.1f s, exit "
+          "0, 18 metrics, launches %s" % (tag, wall, launches), flush=True)
+    return launches
 
 
 if __name__ == "__main__":
