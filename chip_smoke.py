@@ -30,7 +30,11 @@ walked); the JAX bench's 15-iteration pair, which the budget gate hands to
 Lloyd (gate line, no grouping, bitwise, walls); Yinyang against Lloyd,
 bitwise, under forced schedules (revoke always, which must revoke; dense
 fraction 0.01 and 0.99; bf16 lower bounds) on the headline data and the
-13K blob fixture;
+13K blob fixture; Yinyang against Lloyd, bitwise, on 1,000,000 x 256 fp16
+blobs far from the origin (1,024 centers U(0, 8)^256, spread 0.3: d^2 far
+below |x| |c|, where the bf16 panel's score error is absolute) from one
+imported k-means++ start, with the argmin on a row sample, the variants
+and both walls (``bf16_blob_yinyang_phase``);
 the JAX bench's deep-tail restart (2,000,000 x 256 fp32 merged blobs,
 45 iterations from 15 of Lloyd: walls, candidates per iteration, the
 controller's decisions); AFK-MC2 at the JAX bench's spherical
@@ -42,7 +46,13 @@ kNN: the JAX bench's configuration (1,000,000 x 256 fp32 blobs, k=1024,
 16 neighbours) through the public ``knn_cuda``, clustered from the blob
 centers and, as the JAX bench seeds it, by AFK-MC2 (m=200); recall
 against a brute force on the card; and the same call on a CUDA and a CPU
-tensor of the 13K blob fixture.
+tensor of the 13K blob fixture.  bf16 cosine (``bf16_cosine_knn_phase``):
+1,000,000 x 256 unit rows around 1,024 random directions, neighbours at
+angles of about 10^-2, fp16 input, clustered through ``kmeans_cuda(...,
+metric="cos")``, ``knn_cuda`` at 16-NN (wall, examined fraction),
+tie-aware recall 1.0 on 1,024 queries against a blocked fp64 brute force
+of the rescore's measure (the angle of the chord of the stored rows), and
+B3 against its twin on one full batch, timed there with its bound.
 
 The C ABI (``kmcuda_torch.capi`` with ``KMTPU_PLATFORM`` unset):
 ``kmeans_from_pointers`` at the headline configuration from one imported
@@ -54,7 +64,9 @@ to ``kmeans_cuda`` / ``knn_cuda`` on CUDA tensors, with tie-aware
 recall@16 of 1.0, its wall and the bytes it copied each way (from a
 traced repeat); then ``native_torch`` built with cmake and ninja and the
 C smoke of ``native/`` run against it, or a line naming what the host
-lacks for the build.
+lacks for the build; then the R package's testthat suite
+(``r/kmtputorch/tests/test-kmtputorch.R``) where the host has Rscript,
+testthat and reticulate, or a line naming what it lacks.
 
 Multi-device (``multidevice_phase``): the public calls over 1, 2 and 4
 logical shards of card 0 (the device mask answered with cuda:0 d times),
@@ -129,12 +141,11 @@ Tolerances (kernel vs plain twin on the same tensors):
 - B3 (``ops.knn_kernels.compare_walks``, after the shared exact rescore):
   per-chunk examined counts equal unless the step where the walks part has
   its bound within 1e-5 relative of tau; neighbour ids equal except where
-  their fp64 distance profiles agree to rtol 1e-6 (ties) or, for bf16
-  cosine alone (ROADMAP §C6), where the two candidate buffers part only at
-  their kk-th walk distance, within a change of the dot products by
-  2^-20 sum_j |q_j m_j| (``walk_tie``), and on those rows the kernel finds
-  at least as many exact fp64 neighbours as the twin (``exact_hits``);
-  distances rtol 1e-6 where the ids are equal.
+  their fp64 distance profiles agree to rtol 1e-6 (ties), bf16 cosine
+  included; distances rtol 1e-6 where the ids are equal.
+- kNN recall: tie-aware, a returned slot within (1 + 1e-5) d + 1e-6 of
+  the exact fp64 profile's (L2, ``bench_torch.recall_of``), or within
+  rtol 1e-6 of it (bf16 cosine, the chord's angle, ``chord_recall``).
 """
 
 import contextlib
@@ -178,6 +189,12 @@ KNN_BENCH = dict(n=1_000_000, f=256, k=1024, kn=16)
 KNN_RAGGED = dict(n=100_003, f=250, k=1000, kn=10)
 KNN_WIDE = dict(n=16_384, f=2_560, k=16, kn=200)
 SPHERICAL = dict(n=1_000_000, f=256, k=1024, m=100)
+#: bf16 blobs far from the origin (the card test's layout at scale):
+#: centers U(0, 8)^256, spread 0.3, fp16 input
+BF16_BLOBS = dict(n=1_000_000, f=256, k=1024, spread=0.3)
+#: unit rows around random directions, fp16 input; a row's nearest
+#: neighbours lie at angles of about 10^-2 (spread 5e-4 per feature)
+KNN_COS = dict(n=1_000_000, f=256, k=1024, kn=16, spread=5e-4)
 
 
 card_line = B.card_line
@@ -578,6 +595,8 @@ def check_result(x, k, c, a, metric, device=0, rows=None):
                             max_iterations=1, device=device)
     if rows is not None:
         x, a = x[rows], a[rows]
+    if x.dtype == torch.float16:   # the call stores fp16 input as bf16
+        x = x.to(torch.bfloat16)
     valid = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
     ref, _best, _ch = K.assign_only_pass_reference(
         x, valid, a, c_used, n_clusters=k, metric=metric)
@@ -655,11 +674,11 @@ def run_marked(fn):
     return out, buf.getvalue(), dict(K.LAUNCHES), marks
 
 
-def yinyang_vs_lloyd(label, x, k, metric, **kw):
+def yinyang_vs_lloyd(label, x, k, metric, rows=None, **kw):
     """The same call with yinyang_t=0.1 and 0 (verbosity 2): identical
     assignments, centroids and iteration lines, and the Yinyang loop
-    launched B2.  Returns ((c, a), Yinyang log, Yinyang launches, Lloyd
-    launches)."""
+    launched B2; the argmin check on ``rows`` (all when None).  Returns
+    ((c, a), Yinyang log, Yinyang launches, Lloyd launches)."""
     yy, yy_log, yy_n, marks = run_marked(lambda: kmeans_cuda(
         x, k, yinyang_t=0.1, metric=metric, verbosity=2, **kw))
     ll, ll_log, ll_n, _ = run_marked(lambda: kmeans_cuda(
@@ -676,7 +695,7 @@ def yinyang_vs_lloyd(label, x, k, metric, **kw):
                              % label)
     if not (torch.equal(yy[1], ll[1]) and nan_equal(yy[0], ll[0])):
         raise AssertionError("%s: Yinyang and Lloyd results differ" % label)
-    empty, ties = check_result(x, k, yy[0], yy[1], metric)
+    empty, ties = check_result(x, k, yy[0], yy[1], metric, rows=rows)
     print("%s: Yinyang == Lloyd bitwise (assignments, centroids, %d "
           "iteration lines); launches: draft %s, grouping %s, Yinyang loop "
           "%s, Lloyd run %s; %d empty clusters, %d near-tie rows differ "
@@ -802,6 +821,50 @@ def bf16_yinyang_phase(tag, xb):
           "(min of %s), Lloyd wall %.4f s (min of %s), Yinyang / Lloyd "
           "%.3f; %s"
           % (tag, count_iterations(log), yy_s,
+             ", ".join("%.4f" % w for w in walls[0.1]), ll_s,
+             ", ".join("%.4f" % w for w in walls[0]), yy_s / ll_s,
+             yinyang_profile(log)), flush=True)
+    return yy_n, ll_n
+
+
+def bf16_blobs(seed=21):
+    """BF16_BLOBS on the card as fp16: 1,024 centers U(0, 8)^256 and each
+    row a center plus 0.3 N(0, 1), so d^2 to the own centroid (~23) is far
+    below |x| |c| (~5,500): the bf16 panel's absolute score error (about
+    2^-7 |x| |c|) is larger than a margin relative to the distance."""
+    b = BF16_BLOBS
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    centers = torch.rand(b["k"], b["f"], generator=g, device="cuda") * 8.0
+    which = torch.randint(0, b["k"], (b["n"],), generator=g, device="cuda")
+    x = centers[which] + b["spread"] * torch.randn(
+        b["n"], b["f"], generator=g, device="cuda")
+    return x.to(torch.float16)
+
+
+def bf16_blob_yinyang_phase(tag):
+    """Yinyang == Lloyd bitwise at BF16_BLOBS from one imported k-means++
+    start (tolerance 0.002, at most 60 iterations), the argmin on a row
+    sample; the iteration variants and candidate counts, and both walls
+    in turns.  Returns the launch counts of both runs."""
+    b = BF16_BLOBS
+    x = bf16_blobs()
+    k = b["k"]
+    L2 = D.DistanceMetric.L2
+    pp_s, c0 = timed_init(x, k, L2, I.InitMethod.PLUS_PLUS, 4)
+    kw = dict(init=c0, tolerance=0.002, max_iterations=60)
+    label = "%dx%d fp16 blobs U(0, 8) spread %g k=%d" % (
+        b["n"], b["f"], b["spread"], k)
+    _out, log, yy_n, ll_n = yinyang_vs_lloyd(label, x, k, L2,
+                                             rows=sample_rows(b["n"]), **kw)
+    walls = {0.1: [], 0: []}
+    for yt in (0, 0.1, 0.1, 0):
+        walls[yt].append(wall_s(lambda: kmeans_cuda(x, k, yinyang_t=yt,
+                                                    **kw)))
+    yy_s, ll_s = min(walls[0.1]), min(walls[0])
+    print("%s %s, %d iterations from k-means++ seed 4 (%.4f s): Yinyang "
+          "wall %.4f s (min of %s), Lloyd wall %.4f s (min of %s), Yinyang "
+          "/ Lloyd %.3f; %s"
+          % (tag, label, count_iterations(log), pp_s, yy_s,
              ", ".join("%.4f" % w for w in walls[0.1]), ll_s,
              ", ".join("%.4f" % w for w in walls[0]), yy_s / ll_s,
              yinyang_profile(log)), flush=True)
@@ -1116,6 +1179,7 @@ def main() -> int:
              ("1M bf16 Yinyang", *bf16_yinyang_phase(tag, xb)),
              ("15-iteration pair", bench_pair_phase(tag, x))]
     del xb
+    paths.append(("1M bf16 blobs Yinyang", *bf16_blob_yinyang_phase(tag)))
     forced_schedules("the headline data from its k-means++ start", x, k,
                      init=c_pp, tolerance=0.002, max_iterations=60)
     xs = blob_fixture()
@@ -1135,6 +1199,12 @@ def main() -> int:
     check_small_yinyang_agreement()
 
     knn = knn_phase(tag)
+    knn["bf16_cos_1m"], cos_km, cos_walks = bf16_cosine_knn_phase(tag)
+    knn["launches"] += cos_walks
+    knn["max_abs_err"] = max(knn["max_abs_err"],
+                             knn["bf16_cos_1m"]["max_abs_err"])
+    for name in ("fused_lloyd_pass", "assign_only_pass"):
+        total[name] += cos_km[name]
 
     capi_counts = capi_phase(tag, x)
     for name in ("fused_lloyd_pass", "assign_only_pass"):
@@ -1268,6 +1338,125 @@ def knn_plan(x, c, a, metric):
     return TK.plan_pruned(p, c.float(), a)
 
 
+def unit_rows_fp16(seed=23):
+    """KNN_COS on the card: rows around random unit directions, normalized
+    and stored as fp16; rows 0, n // 2 and n - 1 (the rows the cosine
+    check probes) are the exact unit vectors e_0, e_1, e_2.  Returns
+    (rows, unit centers)."""
+    b = KNN_COS
+    n, f = b["n"], b["f"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    centers = torch.randn(b["k"], f, generator=g, device="cuda")
+    centers = centers / centers.norm(dim=1, keepdim=True)
+    which = torch.randint(0, b["k"], (n,), generator=g, device="cuda")
+    x = centers[which] + b["spread"] * torch.randn(n, f, generator=g,
+                                                   device="cuda")
+    x = x / x.norm(dim=1, keepdim=True)
+    x[[0, n // 2, n - 1]] = torch.eye(f, device="cuda")[:3]
+    return x.to(torch.float16), centers
+
+
+def chord_recall(xs, nb, kn, nq=1024, seed=13, block=1 << 17):
+    """Tie-aware recall@kn of the cosine neighbours ``nb`` of ``nq`` query
+    rows (a seeded ``randperm``) under the rescore's measure, the angle
+    2 asin(|q - m| / 2) of the stored rows ``xs``: a blocked fp64 brute
+    force over every row keeps each block's kn + 16 nearest, their fp64
+    subtract-square distances give the exact profile, and a returned
+    slot counts when it is within rtol 1e-6 of the exact one
+    (``knn_kernels.exact_hits``' rule).  Returns (recall, tie-aware
+    recall)."""
+    n = xs.shape[0]
+    qi = torch.randperm(n, generator=torch.Generator(
+        device=xs.device).manual_seed(seed), device=xs.device)[:nq]
+    q = xs[qi].double()
+    q_sq = (q * q).sum(dim=1)
+    best_d, best_i = [], []
+    for s in range(0, n, block):
+        m = xs[s:s + block].double()
+        d2 = q_sq[:, None] + (m * m).sum(dim=1)[None, :] - 2.0 * q @ m.T
+        rows = torch.arange(nq, device=xs.device)
+        own = (qi >= s) & (qi < s + m.shape[0])
+        d2[rows[own], qi[own] - s] = float("inf")
+        d2 = torch.where(torch.isnan(d2), float("inf"), d2)
+        top = torch.topk(d2, kn + 16, dim=1, largest=False)
+        best_d.append(top.values)
+        best_i.append(top.indices + s)
+        del m, d2
+    cand = torch.cat(best_i, dim=1)
+    cand = torch.gather(cand, 1, torch.topk(torch.cat(best_d, dim=1),
+                                            kn + 16, dim=1,
+                                            largest=False).indices)
+
+    def angle(ids):
+        chord = torch.linalg.norm(xs[ids].double() - q[:, None, :], dim=2)
+        return 2.0 * torch.asin(torch.clamp(0.5 * chord, max=1.0))
+
+    true_prof = torch.sort(angle(cand), dim=1).values[:, :kn]
+    got = nb[qi].long()
+    got_prof = torch.sort(angle(got.clamp(min=0)), dim=1).values
+    recall = float(np.mean([len(set(e) & set(r)) / kn for e, r in zip(
+        cand[:, :kn].tolist(), got.tolist())]))
+    ok = (got_prof <= true_prof * (1.0 + 1e-6)) & (got >= 0).all(
+        dim=1, keepdim=True)
+    return recall, float(ok.double().mean())
+
+
+def bf16_cosine_knn_phase(tag):
+    """bf16 cosine kNN at KNN_COS: the rows clustered from their centers
+    through ``kmeans_cuda(..., metric="cos")``, ``knn_cuda`` at 16-NN
+    (launches, its verbosity-2 plan and batch times, wall, examined
+    fraction), tie-aware recall 1.0 on 1,024
+    queries against an fp64 brute force of the chord's angle, B3 against
+    its twin on one full batch and timed there with its bound.  Returns
+    (B3's numbers on the layout, the k-means launches, the kNN call's
+    walk launches)."""
+    b = KNN_COS
+    COS = D.DistanceMetric.COSINE
+    x, centers = unit_rows_fp16()
+    K.reset_launch_counts()
+    c, a = cluster(x, centers, COS)
+    torch.cuda.synchronize()
+    km_n = dict(K.LAUNCHES)
+    require_launched("bf16 cosine clustering", km_n, ("fused_lloyd_pass",))
+    KK.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        nb = knn_cuda(b["kn"], x, c, a, metric="cos", verbosity=2)
+    torch.cuda.synchronize()
+    launches = KK.LAUNCHES["knn_walk"]
+    print(buf.getvalue(), end="", flush=True)
+    if launches == 0:
+        raise AssertionError("bf16 cosine knn_cuda: knn_walk never "
+                             "launched")
+    frac = fraction(buf.getvalue())
+    if nb.shape != (b["n"], b["kn"]) or int(nb.min()) < 0:
+        raise AssertionError("bf16 cosine knn_cuda: neighbours out of "
+                             "shape or range")
+    walls = [wall_s(lambda: knn_cuda(b["kn"], x, c, a, metric="cos"))
+             for _ in range(3)]
+    recall, tie_recall = chord_recall(x.to(torch.bfloat16), nb, b["kn"])
+    print("%s wall knn_cuda %dx%d fp16 (bf16 storage) cosine k=%d %d-NN, "
+          "neighbours at angles ~1e-2: %.4f s (min of 3: %s), examined "
+          "fraction %.6f, knn_walk launches %d; recall@16 %.6f, tie-aware "
+          "recall@16 %.6f on 1024 queries (fp64, the chord's angle)"
+          % (tag, b["n"], b["f"], b["k"], b["kn"], min(walls),
+             ", ".join("%.4f" % w for w in walls), frac, launches, recall,
+             tie_recall), flush=True)
+    if tie_recall != 1.0:
+        raise AssertionError("bf16 cosine: tie-aware recall %.6f != 1"
+                             % tie_recall)
+    del nb
+    plan = knn_plan(x, c, a, COS)
+    nchunks = plan.m_total // plan.q_chunk
+    out, args, kw = check_walk("%dx%d bf16 cos kn=%d" % (
+        b["n"], b["f"], b["kn"]), plan, b["k"], b["kn"], COS,
+        nchunks // 2 - 128, 256)
+    times = time_walk(tag, args, kw)
+    del plan, args, kw, x, c, a
+    return {**times, "max_abs_err": out["max_abs_err"],
+            "library_ms": None}, km_n, launches
+
+
 def check_walk(label, plan, k, kn, metric, chunk_base, n_chunks):
     """B3 vs its plain twin on one batch of a layout; returns (the
     comparison's numbers, the walk's (args, kwargs))."""
@@ -1279,16 +1468,13 @@ def check_walk(label, plan, k, kn, metric, chunk_base, n_chunks):
     in_smem = (kw["kk"] * kw["chunk"] * 8
                <= KK.smem_buffer_bytes(args[0].dtype))
     print("check B3 %s: ok; chunks %d..%d of %d (kk %d, chunk %d, tile_m "
-          "%d, group %d, buffer in %s); %d tie rows (%d of them where the "
-          "candidate buffers part at their edge; exact fp64 neighbours "
-          "there: kernel %d, plain %d), %d chunks' examined differ, "
-          "examined %d, max |d dist| %.3g"
+          "%d, group %d, buffer in %s); %d tie rows, %d chunks' examined "
+          "differ, examined %d, max |d dist| %.3g"
           % (label, chunk_base, chunk_base + n_chunks - 1,
              plan.m_total // plan.q_chunk, kw["kk"], kw["chunk"],
              plan.tile_m, plan.group, "shared memory" if in_smem
-             else "global scratch", out["tie_rows"], out["edge_rows"],
-             *out["edge_hits"], out["chunks_differ"], out["examined"],
-             out["max_abs_err"]), flush=True)
+             else "global scratch", out["tie_rows"], out["chunks_differ"],
+             out["examined"], out["max_abs_err"]), flush=True)
     return out, args, kw
 
 
@@ -1769,7 +1955,44 @@ def capi_phase(tag, x):
     print("capi phase launches (pointer path and handle pipeline): %s"
           % counts, flush=True)
     capi_shim(tag)
+    r_suite(tag)
     return counts
+
+
+def r_suite(tag):
+    """The R package's testthat suite (r/kmtputorch/tests/
+    test-kmtputorch.R) on the card, where the host has Rscript with
+    testthat and reticulate and reticulate finds kmcuda_torch; otherwise a
+    line naming what is missing (nothing is installed)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    rscript = shutil.which("Rscript")
+    if rscript is None:
+        print("R suite: not run on this host: Rscript missing", flush=True)
+        return
+    env = {key: val for key, val in os.environ.items()
+           if key != "KMTPU_PLATFORM"}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    env["RETICULATE_PYTHON"] = sys.executable
+    probe = subprocess.run(
+        [rscript, "-e", "library(testthat); library(reticulate); "
+         "stopifnot(reticulate::py_module_available('kmcuda_torch'))"],
+        env=env, capture_output=True, text=True, timeout=120)
+    if probe.returncode != 0:
+        print("R suite: not run on this host: %s" % (
+            probe.stderr.strip().splitlines() or ["probe failed"])[-1],
+            flush=True)
+        return
+    t = time.perf_counter()
+    res = subprocess.run(
+        [rscript, os.path.join(root, "r", "kmtputorch", "tests",
+                               "test-kmtputorch.R")],
+        env=env, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError("R suite on the card: rc %d\n%s%s"
+                             % (res.returncode, res.stdout, res.stderr))
+    print("%s R suite: test-kmtputorch.R passed on the card in %.1f s: %s"
+          % (tag, time.perf_counter() - t,
+             " | ".join(res.stdout.strip().splitlines()[-3:])), flush=True)
 
 
 # ---------------------------------------------------------------------------

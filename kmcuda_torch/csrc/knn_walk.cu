@@ -14,8 +14,12 @@
 // chunk's queries in panels of PANEL = 256 rows, and the dot products of a
 // (panel, sub-tile) pair run on the tensor cores (below), into a (BN x 256)
 // shared block.  Each thread then owns one query row: it turns the dots
-// into true distances (L2 sqrt(max(|m|^2 - 2 dot + |q|^2, 0)), cosine
-// acos(clip(dot))), applies the (1 + SLACK) margin and the bf16 envelope,
+// into true distances (L2 sqrt(max(|m|^2 - 2 dot + |q|^2, 0)); cosine
+// acos(clip(dot)) in fp32 storage, and in bf16 storage the angle of that
+// same L2 chord, 2 asin(min(t / 2, 1)), the measure of the exact rescore:
+// bf16 rows of unit vectors are not of unit norm, and for near neighbours
+// the angle of the dot is mostly that rounding), applies the (1 + SLACK)
+// margin and the bf16 envelope (to the chord, before the angle),
 // masks self and padding to +inf, and inserts a candidate into its row of
 // the sorted (distance, id) buffer only if it is lexicographically below
 // the current kk-th entry — so a masked member (+inf, id >= 0) never
@@ -82,8 +86,10 @@ constexpr int BN = 64;              // members per sub-tile (N)
 constexpr int STAGES = 2;           // depth of the shared-memory ring
 constexpr int DSTRIDE = PANEL + 4;  // dots row: conflict-free fragment stores
 constexpr float INFLATE = 1.00001f;                // fp32(1 + SLACK)
-constexpr float EPS_ENV = 0.00390625f;             // 2^-8, bf16 storage
-constexpr float COS_ENV = 0.08838834764831845f;    // sqrt(2 * 2^-8)
+// bf16 storage: the chord t = sqrt(|m|^2 - 2 dot + |q|^2) is raised by
+// sqrt(EPS_ENV (|q|^2 + |m|^2)), above the dot form's rounding here and in
+// pass 1 together (knn_prune.EPS_ENV derives it)
+constexpr float EPS_ENV = 0.00390625f;             // 2^-8
 constexpr float STOP_BOUND = 1e28f;
 constexpr size_t MAX_SMEM = 232448;  // 227 KB, a block's limit on sm_90
 
@@ -322,16 +328,19 @@ walk_kernel(const T *__restrict__ xq, const float *__restrict__ xq_sq,
             const float dot = dots[j * DSTRIDE + tid];
             const float msq = msq_s[j];
             float d;
-            if (cosine)
+            if (cosine && SPLIT<T>)
               d = acosf(fminf(fmaxf(dot, -1.f), 1.f));
             else
               d = sqrtf(fmaxf(
                   __fadd_rn(__fsub_rn(msq, __fmul_rn(2.f, dot)), qsq), 0.f));
             d = __fmul_rn(d, INFLATE);
             if (envelope)
-              d = __fadd_rn(d, cosine ? COS_ENV
-                                      : sqrtf(__fmul_rn(EPS_ENV,
-                                                        __fadd_rn(qsq, msq))));
+              d = __fadd_rn(d,
+                            sqrtf(__fmul_rn(EPS_ENV, __fadd_rn(qsq, msq))));
+            if (cosine && !SPLIT<T>) {  // bf16: the angle of the chord
+              const float h = __fmul_rn(0.5f, d);
+              d = __fmul_rn(2.f, asinf(h > 1.f ? 1.f : h));  // NaN stays
+            }
             const int32_t mp = (int32_t)(mrow0 + j);
             if (mp == qp || mspos_s[j] < 0) d = INFINITY;
             if (d < kd || (d == kd && mp < ki)) {

@@ -42,11 +42,15 @@ RADII_ELEMENTS = 1 << 24
 def _search(xq, xq_sq, xm, m_valid, *, k: int, metric, tile_m: int):
     """Brute-force exact top-k (plain torch): every query against every
     member tile, dot-form distances, self and invalid members masked, a
-    lexicographic top-kk merge per tile, then the exact rescore.  Returns
-    (neighbors (n, k) int32, distances (n, k) fp32) ascending."""
+    lexicographic top-kk merge per tile, then the exact rescore.  bf16
+    cosine ranks by the chord, whose angle the rescore returns
+    (``knn_prune.chord_measure``).  Returns (neighbors (n, k) int32,
+    distances (n, k) fp32) ascending."""
     nl = xq.shape[0]
     nm = xm.shape[0]
     dev = xq.device
+    rank = (D.DistanceMetric.L2 if KP.chord_measure(xq.dtype, metric)
+            else metric)
     xm_sq = D.row_sq_norms(xm)
     kk = KP.candidate_kk(k, nm)
     bi = torch.empty((nl, kk), dtype=torch.int32, device=dev)
@@ -59,8 +63,8 @@ def _search(xq, xq_sq, xm, m_valid, *, k: int, metric, tile_m: int):
                             device=dev)
         for m0 in range(0, nm, tile_m):
             msl = slice(m0, m0 + tile_m)
-            s = D.scores(qb, xm[msl].T, xm_sq[msl], metric)
-            d = D.finalize_distance(s, qsq, metric)
+            s = D.scores(qb, xm[msl].T, xm_sq[msl], rank)
+            d = D.finalize_distance(s, qsq, rank)
             mid = torch.arange(m0, m0 + s.shape[1], device=dev)[None, :]
             d = torch.where((qid == mid) | ~m_valid[msl][None, :], INF, d)
             if bool((d.min(dim=1).values <= best_d[:, kk - 1]).any()):

@@ -18,6 +18,13 @@ next tile's bound exceeds every query's running kth distance.
 - :func:`rescore` gives the kk surviving candidates the exact
   subtract-square distance and selects the k nearest.
 
+Cosine in bf16 storage ranks by one measure in all three: the angle of
+the chord of the stored rows, 2 asin(|q - m| / 2), in which the rescore
+returns its distances.  bf16 rows of unit vectors are not of unit norm
+(1 +- ~2^-8), and for near neighbours 1 - cos is far below that, so the
+angle of the dot product would be mostly rounding.  fp32 cosine ranks by
+the angle of the dot, as the JAX package does.
+
 Exactness: all bounds live in true-distance space with a downward slack
 on the tile bound and an upward margin on every walk distance, so
 rounding can only weaken pruning.  The walk tracks candidates as packed
@@ -35,6 +42,20 @@ INF = float("inf")
 #: relative slack absorbing dot-form rounding in the pruning inequalities
 SLACK = 1e-5
 
+#: the bf16 storage envelope: every walk distance's chord
+#: t = sqrt(|m|^2 - 2 q.m + |q|^2) is raised by sqrt(EPS_ENV (|q|^2 +
+#: |m|^2)).  The products of bf16 values are exact in fp32; the dot's fp32
+#: sum over f features, the two fp32 row norms and the two adds leave
+#: t^2 within (f + 2) 2^-23 (|q|^2 + |m|^2) of |q - m|^2, and pass 1's
+#: chord to a centroid (fp32 products) errs the same way, and an error e
+#: in a square moves its root by at most sqrt(e).  The envelope covers
+#: both at once, so tau stays above the exact k-th distance and no tile
+#: with a neighbour is cut: for cosine rows (every norm within 2^-7 of 1)
+#: while 4 (f + 2) 2^-23 (2 + 2^-6) <= 2^-8 (2 - 2^-6), f <= 7,900 (a
+#: worst case: fp32 sums round far below it); for L2 it is the JAX
+#: package's envelope.  fp32 storage has none: SLACK covers its rounding
+EPS_ENV = 2.0 ** -8
+
 #: bound of tiles that must never be visited; any bound >= STOP_BOUND ends
 #: the walk regardless of the running kth distance (fp32 values, as in the
 #: JAX package)
@@ -45,6 +66,12 @@ STOP_BOUND = float(np.float32(1e28))
 BOUND_ELEMENTS = 1 << 25
 #: the rescore gathers at most this many candidate feature values at a time
 RESCORE_ELEMENTS = 1 << 26
+
+
+def chord_measure(dtype, metric) -> bool:
+    """True where the walk and pass 1 rank cosine neighbours by the angle
+    of the chord (bf16 storage), not by the angle of the dot product."""
+    return metric == D.DistanceMetric.COSINE and dtype == torch.bfloat16
 
 
 def select_k(d, idx, kk: int):
@@ -156,11 +183,12 @@ def tours(xq, xq_sq, q_assign, c_rank, r_ext, inc_c, inc_t, *,
     c_safe = torch.where(torch.isfinite(c_rank), c_rank, 0.0)
     c_safe_sq = torch.sum(c_safe * c_safe, dim=1)
     qv = q_assign < k
+    chord = chord_measure(xq.dtype, metric)
     slab = chunk * max(1, BOUND_ELEMENTS // (chunk * max(k, 1)))
     u_parts = []
     for s in range(0, nb, slab):
         prod = D.matmul_f32(xq[s:s + slab], c_safe.T)
-        if metric == D.DistanceMetric.L2:
+        if metric == D.DistanceMetric.L2 or chord:
             dd = torch.sqrt(torch.clamp(
                 c_safe_sq[None, :] - 2.0 * prod + xq_sq[s:s + slab, None],
                 min=0.0))
@@ -170,7 +198,22 @@ def tours(xq, xq_sq, q_assign, c_rank, r_ext, inc_c, inc_t, *,
         u_parts.append(dd.view(-1, chunk, k).amin(dim=1))
     u_all = torch.cat(u_parts)                              # (nchunks, k)
     inc_cc = torch.clamp(inc_c, max=k - 1)
-    vals = u_all[:, inc_cc] - r_ext[inc_cc][None, :]        # (nchunks, L)
+    if chord:
+        # the chord is a metric whatever the rows' norms, so the bound is
+        # taken there, |q - c| - R(c) <= |q - m|, then turned into the
+        # angle 2 asin(t / 2), which rises with t (and is convex: the
+        # angles' own triangle inequality would need unit norms, which
+        # bf16 rows lack).  R(c) is the chord of the radius, 2 sin(r / 2)
+        # with a few ulps' margin; a radius past 3 (a chord past 1.99,
+        # where r's clamp at pi may hide a longer chord) bounds nothing
+        r_chord = torch.where(r_ext < 3.0,
+                              2.0 * torch.sin(0.5 * r_ext) * (1.0 + 2 ** -20),
+                              INF)
+        vals = torch.clamp(u_all[:, inc_cc] - r_chord[inc_cc][None, :],
+                           min=0.0)
+        vals = 2.0 * torch.arcsin(torch.clamp(0.5 * vals, max=1.0))
+    else:
+        vals = u_all[:, inc_cc] - r_ext[inc_cc][None, :]    # (nchunks, L)
     vals = vals - SLACK * (1.0 + vals.abs())
     vals = torch.where(torch.isfinite(vals) & (inc_c < k)[None, :], vals,
                        BIG_BOUND)
@@ -220,11 +263,9 @@ def walk_inputs(xq, xq_sq, q_assign, xm, xm_sq, m_spos, c_rank, r_ext,
         n_tiles=nm // tile_m, group=group)
     args = (xq, xq_sq, q_pos, q_assign < n_clusters, n_qvalid, n_steps,
             tile_order, sorted_min, tile_nvalid, xm, xm_sq, m_spos)
-    # absolute dot-form error envelope of bf16 storage (0 = fp32, whose
-    # rounding the relative SLACK covers)
     kw = dict(k_neighbors=k_neighbors, kk=candidate_kk(k_neighbors, nm),
               chunk=chunk, tile_m=tile_m, group=group, metric=metric,
-              eps_env=0.0 if xq.dtype == torch.float32 else 2.0 ** -8)
+              eps_env=0.0 if xq.dtype == torch.float32 else EPS_ENV)
     return args, kw
 
 

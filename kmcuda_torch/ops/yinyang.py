@@ -9,7 +9,13 @@ the current upper bound ``u + acc[ga]``, with ``ga`` the group of the
 assigned centroid; every conversion carries a 2.4e-7 relative margin
 toward soundness.  A sample whose current ``u`` is below all of its
 current ``l`` provably keeps its assignment (the global filter; ``>=``
-keeps a knife-edge tie a candidate).
+keeps a knife-edge tie a candidate).  B2 picks its top 2 by scores
+against the centroids rounded to the storage dtype and rescores them
+exactly, so in bf16 storage ``u`` bounds both the bf16-scored and the
+exact distance from above and ``l`` both from below: every fresh bound
+carries the bf16 panel's envelope (:func:`panel_envelope`), which the JAX
+package's bounds lack.  Cosine bounds in bf16 storage are angles of
+x / |x|, which bf16 leaves off the unit sphere.
 
 Every assignment goes through the Lloyd kernels (``ops.assign_kernels``)
 against the full centroid panel in natural column order, and the running
@@ -84,6 +90,10 @@ BOUND_MARGIN = 2.4e-7
 #: the iteration variants, as ``YinyangStep.variant`` names them
 VARIANTS = ("dense plain", "dense refresh", "sparse keep", "sparse refresh")
 
+#: the rounding of a centroid entry to bf16 for B2's panel (round to
+#: nearest, 8 significant bits): |c'_i - c_i| <= 2^-8 |c_i|
+PANEL_ROUNDING = 2.0 ** -8
+
 
 class GroupLayout(NamedTuple):
     """The capacity-balanced centroid groups of ``models.yinyang``."""
@@ -141,6 +151,8 @@ class _Tables(NamedTuple):
     c_sq_ext: torch.Tensor   # (k+1,) fp32, PAD_PENALTY for dead rows
     panel_t: torch.Tensor    # (F, G*cap) storage dtype group panel
     bias: torch.Tensor       # (G*cap,) fp32
+    c_norm: torch.Tensor     # (k+1,) fp32 |c_ext| rows, 0 for dead rows
+    g_norm: torch.Tensor     # (G,) fp32 max of c_norm over a group's slots
 
     def to(self, device) -> "_Tables":
         return _Tables(*(t.to(device) for t in self))
@@ -216,8 +228,47 @@ def _tables(c_new, layout, dtype, metric) -> _Tables:
     else:
         panel = -c_ext[src]
         bias = pen
+    c_norm = torch.sqrt(D.row_sq_norms(c_ext))
     return _Tables(c_ext, c_ext.to(dtype).float(), c_sq_ext,
-                   panel.to(dtype).T, bias)
+                   panel.to(dtype).T, bias, c_norm,
+                   c_norm[layout.pad_src].amax(dim=1))
+
+
+def panel_envelope(dtype, metric, f: int) -> float:
+    """The coefficient e of the bf16 storage envelope: every score that
+    B2 or a bound pass computes against the bf16 panel is within e |x| |c|
+    of the exact score against the fp32 centroid c, in score space.  0 for
+    fp32 storage, whose scores the relative ``rounding_eps`` margins cover.
+
+    The panel holds c' = bf16(c), so |x.(c' - c)| <= PANEL_ROUNDING |x| |c|
+    (Cauchy-Schwarz).  Each computed product (B2's, and the rowwise or
+    matmul sums here) adds at most f 2^-24 (1 + 2^-8) |x| |c| of fp32
+    accumulation (x is stored in bf16 already, so its products are exact
+    up to that), below f 2^-22 |x| |c| for both sums at once.  The L2
+    score |c|^2 - 2 x.c' doubles both; the cosine score is -x.c'.  The
+    error is absolute in score space: where d^2 is small against
+    |x| |c| (rows far from the origin, near their centroid) it is far
+    above a margin relative to the distance, so a filter without it drops
+    rows that B2 moves."""
+    if dtype == torch.float32:
+        return 0.0
+    e = PANEL_ROUNDING + f * 2.0 ** -22
+    return 2.0 * e if metric == D.DistanceMetric.L2 else e
+
+
+def _x_norm(x_sq):
+    """|x| of the rows, never 0 (a divisor below)."""
+    return torch.sqrt(x_sq).clamp(min=torch.finfo(torch.float32).tiny)
+
+
+def _finalize(score, x_sq, metric, env: float):
+    """``D.finalize_distance``; under a bf16 envelope the cosine distance
+    is the angle of x / |x| to the centroid (acos(-score / |x|)), a metric
+    on the sphere whatever bf16's rounding did to |x|, in which B2's order
+    (by -x.c, for one row) is the angle's."""
+    if env and metric == D.DistanceMetric.COSINE:
+        return torch.arccos(torch.clamp(-score / _x_norm(x_sq), -1.0, 1.0))
+    return D.finalize_distance(score, x_sq, metric)
 
 
 def _u_store(u_exact, c2):
@@ -226,25 +277,40 @@ def _u_store(u_exact, c2):
 
 
 def _tighten(xb, xsqb, ab, t: _Tables, eps, metric):
-    """Exact distance of each row to its own centroid, rounded up by the
-    rowwise-dot margin (the row sum rounds unlike the kernel's product)."""
+    """Distance of each row to its own centroid from the panel score,
+    rounded up by the rowwise-dot margin (the row sum rounds unlike the
+    kernel's product) and, in bf16 storage, by the envelope: an upper
+    bound on both the bf16-scored and the exact distance."""
     prod = torch.sum(xb.float() * t.c_row[ab], dim=1)
     if metric == D.DistanceMetric.L2:
         score = t.c_sq_ext[ab] - 2.0 * prod
         score = score + eps * (xsqb + score.abs())
     else:
         score = -prod + eps
+    env = panel_envelope(xb.dtype, metric, xb.shape[1])
+    if env:
+        score = score + env * _x_norm(xsqb) * t.c_norm[ab]
     score = torch.where(torch.isfinite(score), score, config.PAD_PENALTY)
-    return D.finalize_distance(score, xsqb, metric)
+    return _finalize(score, xsqb, metric, env)
 
 
-def _exact_u(xb, a, t: _Tables, metric):
+def _exact_u(xb, xsqb, a, t: _Tables, metric):
     """Exact distance of rows ``xb`` to the centroids ``a`` (subtract and
     square, no cancellation), rounded up by f * 2^-22 relative, above the
-    fp32 sum's rounding at any feature count."""
-    chord = torch.linalg.vector_norm(xb - t.c_ext[a], dim=1) \
-        * (1.0 + xb.shape[1] * 2.0 ** -22)
-    if metric == D.DistanceMetric.L2:
+    fp32 sum's rounding at any feature count.  In bf16 storage it also
+    bounds the bf16-scored distance: the squared chord widened by the
+    envelope (cosine: the chord of x / |x|, whose square is 2 - 2 cos,
+    widened by twice the envelope's cosine)."""
+    env = panel_envelope(xb.dtype, metric, xb.shape[1])
+    cosine = metric == D.DistanceMetric.COSINE
+    if env and cosine:
+        xb = xb.float() / _x_norm(xsqb)[:, None]
+    chord = torch.linalg.vector_norm(xb - t.c_ext[a], dim=1)
+    if env:
+        widen = 2.0 * env if cosine else env * _x_norm(xsqb)
+        chord = torch.sqrt(chord * chord + widen * t.c_norm[a])
+    chord = chord * (1.0 + xb.shape[1] * 2.0 ** -22)
+    if not cosine:
         return chord
     return 2.0 * torch.arcsin(torch.clamp(chord * 0.5, 0.0, 1.0))
 
@@ -267,11 +333,13 @@ def _refresh(x, x_sq, aid, rows, state, t: _Tables, layout, metric):
     u, l, ga, acc = state
     groups, cap = layout.pad_src.shape
     eps = D.rounding_eps(x.dtype)
+    env = panel_envelope(x.dtype, metric, x.shape[1])
     for r in _row_chunks(rows, x.shape[0],
                          max(1, BOUND_CHUNK_ELEMENTS // (groups * cap))):
         xb = x[r]
+        xsqb = x_sq[r][:, None]
         a = aid[r].long()
-        u_new = _exact_u(xb, a, t, metric)
+        u_new = _exact_u(xb, xsqb[:, 0], a, t, metric)
         own = layout.flat_slot[a]
         g_new = own // cap
         sp = D.matmul_f32(xb, t.panel_t) + t.bias
@@ -280,7 +348,9 @@ def _refresh(x, x_sq, aid, rows, state, t: _Tables, layout, metric):
                           neginf=config.PAD_PENALTY)
         sp.scatter_(1, own[:, None], config.PAD_PENALTY)
         l_sc = sp.view(-1, groups, cap).amin(dim=2)
-        l_new = D.finalize_distance(l_sc, x_sq[r][:, None], metric)
+        if env:   # below both the bf16-scored and the exact score
+            l_sc = l_sc - env * _x_norm(xsqb) * t.g_norm
+        l_new = _finalize(l_sc, xsqb, metric, env)
         # downward margin: the panel product rounds unlike the kernel's
         l_new = l_new - eps * (1.0 + l_new)
         u[r] = _u_store(u_new, acc[g_new])
@@ -288,7 +358,7 @@ def _refresh(x, x_sq, aid, rows, state, t: _Tables, layout, metric):
         ga[r] = g_new
 
 
-def _refresh_u(x, aid, rows, state, t: _Tables, layout, metric):
+def _refresh_u(x, x_sq, aid, rows, state, t: _Tables, layout, metric):
     """Exact u and the group ga of ``rows`` (None for all) under ``aid``;
     l is kept (a plain pass).  Writes ``state`` in place."""
     u, _l, ga, acc = state
@@ -297,7 +367,7 @@ def _refresh_u(x, aid, rows, state, t: _Tables, layout, metric):
                          max(1, BOUND_CHUNK_ELEMENTS // x.shape[1])):
         a = aid[r].long()
         g_new = layout.flat_slot[a] // cap
-        u[r] = _u_store(_exact_u(x[r], a, t, metric), acc[g_new])
+        u[r] = _u_store(_exact_u(x[r], x_sq[r], a, t, metric), acc[g_new])
         ga[r] = g_new
 
 
@@ -447,8 +517,8 @@ def yy_run(x, x_sq, valid, assign, c_used, sums, counts, prev_changed: int,
                 _refresh(xs[i], xsqs[i], aids[i], rowss[i], states[i], ts[i],
                          lays[i], metric)
             else:
-                _refresh_u(xs[i], aids[i], rowss[i], states[i], ts[i],
-                           lays[i], metric)
+                _refresh_u(xs[i], xsqs[i], aids[i], rowss[i], states[i],
+                           ts[i], lays[i], metric)
         patched = 0
         if not refreshed and changed:
             for i in range(d):

@@ -16,7 +16,7 @@ suite's behavioural one (tests/test_kmeans.py:277-309): iteration counts
 within 1, at most 0.2% of the assignments differ, centroids of the
 clusters assigned alike within rtol 1e-4 / atol 1e-5.  Bitwise: one shard
 against the tensor call, reruns at one d, Yinyang against Lloyd at a
-ragged d = 3, the init's picks at d = 2 and 3, and the kNN neighbours at
+ragged d = 3 (and in bf16 storage at d = 1 and 3), the init's picks at d = 2 and 3, and the kNN neighbours at
 every d (a query chunk's search does not depend on the cut).
 """
 
@@ -172,6 +172,26 @@ def test_yinyang_equals_lloyd_on_ragged_shards(samples, monkeypatch):
         "plan: cpu rows [0, 4334) (1 chunks, 0.0 MB samples)",
         "plan: cpu rows [4334, 8667) (1 chunks, 0.0 MB samples)",
         "plan: cpu rows [8667, 13000) (1 chunks, 0.0 MB samples)"]
+    assert _lines(logy) == _lines(logl)
+    np.testing.assert_array_equal(cy, cl)
+    np.testing.assert_array_equal(ay, al)
+
+
+@pytest.mark.parametrize("d", [1, 3])
+def test_bf16_yinyang_equals_lloyd_on_ragged_shards(samples, monkeypatch,
+                                                    d):
+    """The ragged case above as fp16 input (bf16 storage): each shard's
+    bounds carry the bf16 panel's envelope, so Yinyang gives Lloyd's
+    results bitwise at one shard and at three."""
+    x = samples.copy()
+    x[[5, 9000]] = np.nan
+    x = x.astype(np.float16)
+    kw = dict(init="kmeans++", seed=4, tolerance=0.002, verbosity=2)
+    (cy, ay), logy = _kmeans(monkeypatch, x, 50, d, yinyang_t=0.1, **kw)
+    (cl, al), logl = _kmeans(monkeypatch, x, 50, d, yinyang_t=0, **kw)
+    assert cy.dtype == np.float16 and (ay[[5, 9000]] == 50).all()
+    assert "passed the global filter" in logy
+    assert len(_lines(logy, "plan: ")) == d
     assert _lines(logy) == _lines(logl)
     np.testing.assert_array_equal(cy, cl)
     np.testing.assert_array_equal(ay, al)
