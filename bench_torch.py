@@ -67,6 +67,7 @@ from kmcuda_torch import kmeans_cuda, knn_cuda
 from kmcuda_torch.ops import _build
 from kmcuda_torch.ops import assign_kernels as K
 from kmcuda_torch.ops import distance as D
+from kmcuda_torch.ops import init_kernels as IK
 from kmcuda_torch.ops import knn_kernels as KK
 
 BASE_LLOYD_100K = 9.2          # s, 1 GPU (bench.py:30)
@@ -518,7 +519,7 @@ def bench_second_process(extra, device="cuda", smoke=False):
 
 
 def _launches() -> dict:
-    return {**K.LAUNCHES, **KK.LAUNCHES}
+    return {**K.LAUNCHES, **KK.LAUNCHES, **IK.LAUNCHES}
 
 
 def card_line() -> str:
@@ -577,6 +578,7 @@ def main() -> int:
     for name, stage in STAGES:
         K.reset_launch_counts()
         KK.reset_launch_counts()
+        IK.reset_launch_counts()
         start = time.perf_counter()
         try:
             out = stage(extra, device=device, smoke=smoke)

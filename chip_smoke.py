@@ -14,6 +14,16 @@ in ulps.  Each kernel is timed in turns with its twin and, where one
 exists, a library yardstick (plain, kernel, kernel, plain, library),
 beside its bound from ``roofline.py`` (beside this script).
 
+The init step (``kmt_point_min``, k-means++ and AFK-MC2): held against
+its twin (``check_point_min``: fp32 and bf16 from fp16 input, L2 and
+cosine, first and later steps, invalid rows, f in 3, 8, 256, 257 and row
+counts at ragged edges), timed beside its twin, ``torch.mv`` (the product
+alone) and its bound at 100K fp32 and 1M bf16, and at 8M and 40M bf16 in
+the scale phase; x_sq over row blocks against the whole pass at both
+shapes (``check_row_sq_norms``); k-means++ through the kernel and through
+the twin in lockstep at the headline and at 8M (``kmeanspp_picks``: equal
+picks, or a first moved pick explained by the draw's boundary).
+
 Lloyd: the public ``kmeans_cuda`` at the reference benchmark's headline
 configuration (100,000 x 256 fp32, k=1024, random init, seed 1, tolerance
 0.002, 15 iterations), a 5-iteration restart from its centroids (so the
@@ -78,8 +88,10 @@ is bitwise the call without a mask, the k-means++ picks are d = 1's;
 Lloyd at d = 2 and 4 meets tests/test_kmeans.py:277-309's contract
 against d = 1: iteration counts within 1, at most 0.2% of the
 assignments differ, 96% of the centroids within rtol 1e-4 / atol 1e-5;
-the default call's iteration counts are within 1 of d = 1's, and where
-its reassignment counts part by fp32 rounding is printed);
+the default call meets that contract over its first 4 iterations from
+the same start at d = 2 and 4, its whole runs' iteration counts are
+within 1 of d = 1's, and where their reassignment counts part by fp32
+rounding is printed);
 1M x 256 bf16 Lloyd at d = 4 (bitwise repeat, argmin); kNN at 1M x 256
 fp32 16-NN (neighbours d = 1's up to fp64 ties, tie-aware recall@16 1.0,
 examined fractions beside d = 1's); walls of d = 1, 2 and 4.  With
@@ -101,9 +113,13 @@ whose offset row * f reaches 2**31, then ``kmeans_cuda`` there;
 with tie-aware recall 1.0 over every row and the walk against its twin;
 and k=2048 Yinyang (tests/test_scale.py:136) equal to Lloyd bitwise, at
 the JAX test's 3 iterations and over 8, where sparse iterations filter
-rows.  Each
-run prints its wall, iterations, peak memory and launches.  The phase
-needs about 24 GB of card memory.
+rows; and a 40,000,000 x 256 bf16 corpus (``capacity_run``: 20.48 GB of
+samples, k-means++ seed 17, 5 iterations at most, the argmin on a row
+sample, peak at most 1.5x the samples).  The 8M and 40M runs must peak at
+most 1.5x their samples; the 8M one also times a prepare of fp16 numpy
+samples.  Each run prints its wall, iterations, peak memory and launches.
+The phase needs about 62 GB of card memory (the plain twin's fp32 copy of
+the 40M samples, timed beside the kernel).
 
 The port's benchmark (``bench_phase``, last): ``python3 bench_torch.py``
 at full size in a process of its own, its lines echoed, after this
@@ -143,6 +159,12 @@ Tolerances (kernel vs plain twin on the same tensors):
   its bound within 1e-5 relative of tau; neighbour ids equal except where
   their fp64 distance profiles agree to rtol 1e-6 (ties), bf16 cosine
   included; distances rtol 1e-6 where the ids are equal.
+- The init step (``check_point_min``): distances within 1e-6 (x_sq +
+  |c|^2) of the twin's in the d^2 domain (L2), within 1e-6 |x| |c| in the
+  cos domain (cosine); no further from an fp64 pass than the twin plus
+  that; a later step bitwise the minimum of its input and the kernel's
+  distances; invalid rows 0; repeats bitwise.  x_sq over row blocks:
+  bitwise the whole pass, else within rtol f 2**-24 of fp64 (printed).
 - kNN recall: tie-aware, a returned slot within (1 + 1e-5) d + 1e-6 of
   the exact fp64 profile's (L2, ``bench_torch.recall_of``), or within
   rtol 1e-6 of it (bf16 cosine, the chord's angle, ``chord_recall``).
@@ -172,6 +194,7 @@ from kmcuda_torch.models.problem import prepare
 from kmcuda_torch.ops import _build
 from kmcuda_torch.ops import assign_kernels as K
 from kmcuda_torch.ops import distance as D
+from kmcuda_torch.ops import init_kernels as IK
 from kmcuda_torch.ops import knn_kernels as KK
 from kmcuda_torch.ops import yinyang as YY
 from kmcuda_torch.ops import assign as A
@@ -180,6 +203,7 @@ from kmcuda_torch.parallel import devices as DEV
 from kmcuda_torch.parallel.devices import Topology
 from kmcuda_torch.utils.logging import Logger
 import bench_torch as B
+import capacity as CAP
 import roofline as R
 
 HEADLINE = dict(n=100_000, f=256, k=1024)
@@ -319,14 +343,15 @@ def time_ms(fn, reps):
 #: the kernels whose ptxas lines kernel_report prints
 KERNEL_NAMES = ("assign_kernel", "walk_kernel", "seg_count_kernel",
                 "seg_scan_kernel", "seg_starts_kernel", "seg_place_kernel",
-                "seg_reduce_kernel", "seg_fix_kernel")
+                "seg_reduce_kernel", "seg_fix_kernel", "point_min_kernel")
 
 
 def _kernel_name(mangled: str):
     """'assign_kernel<bf16>' etc. for a mangled name, or None."""
     for name in KERNEL_NAMES:
         if name in mangled:
-            if name in ("assign_kernel", "walk_kernel", "seg_reduce_kernel"):
+            if name in ("assign_kernel", "walk_kernel", "seg_reduce_kernel",
+                        "point_min_kernel"):
                 return "%s<%s>" % (name, "bf16" if "nv_bfloat16" in mangled
                                    else "float")
             return name
@@ -354,9 +379,9 @@ def kernel_report():
     float_atomics = 0
     for section in sass.split("Function : ")[1:]:
         name = _kernel_name(section.split("\n", 1)[0])
-        if name and not name.startswith("seg_"):
+        if name and not name.startswith(("seg_", "point_min")):
             counts[name] = section.count("HGMMA")
-        elif name:
+        elif name and name.startswith("seg_"):
             float_atomics += sum(
                 1 for l in section.splitlines()
                 if ("ATOM" in l or "RED" in l) and "F32" in l)
@@ -657,13 +682,13 @@ def run_marked(fn):
     group = Y._group_centroids
 
     def marked(*args, **kwargs):
-        marks.append(dict(K.LAUNCHES))
+        marks.append(_launches())
         out = group(*args, **kwargs)
-        marks.append(dict(K.LAUNCHES))
+        marks.append(_launches())
         return out
 
     Y._group_centroids = marked
-    K.reset_launch_counts()
+    _reset_launches()
     buf = io.StringIO()
     try:
         with contextlib.redirect_stdout(buf):
@@ -671,7 +696,7 @@ def run_marked(fn):
         torch.cuda.synchronize()
     finally:
         Y._group_centroids = group
-    return out, buf.getvalue(), dict(K.LAUNCHES), marks
+    return out, buf.getvalue(), _launches(), marks
 
 
 def yinyang_vs_lloyd(label, x, k, metric, rows=None, **kw):
@@ -785,6 +810,8 @@ def default_call_phase(tag, x):
     pp_s, c0 = timed_init(x, k, L2, I.InitMethod.PLUS_PLUS, 1)
     _out, log, yy_n, ll_n = yinyang_vs_lloyd(
         "default call 100000x256 fp32 k=1024", x, k, L2, **kw)
+    for launches in (yy_n, ll_n):
+        require_launched("default call", launches, ("point_min",))
     walls = {0.1: [], 0: []}
     for _ in range(3):
         for yt in (0, 0.1):
@@ -1011,7 +1038,7 @@ def spherical_phase(tag):
     cos = D.DistanceMetric.COSINE
     x = B.unit_rows("cuda")
     init_s, _ = timed_init(x, s["k"], cos, I.InitMethod.AFKMC2, 7, s["m"])
-    K.reset_launch_counts()
+    _reset_launches()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         t = time.perf_counter()
@@ -1020,7 +1047,8 @@ def spherical_phase(tag):
                            max_iterations=20, verbosity=1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    launches = dict(K.LAUNCHES)
+    launches = _launches()
+    require_launched("spherical AFK-MC2", launches, ("point_min",))
     log = buf.getvalue()
     print(log, end="", flush=True)
     empty, ties = check_result(x, s["k"], c, a, cos)
@@ -1076,6 +1104,279 @@ def check_small_yinyang_agreement():
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The init step (point_min) and the row-blocked prepare passes
+
+#: (f, row counts) held kernel against twin: f = 3 and 257 take the
+#: element-wise loads, f = 8 packs 16 (fp32) or 32 (bf16) rows in a warp,
+#: f = 256 is the main path's; the row counts cut the last warp, block and
+#: (1,000,003) the grid-stride loop's last round
+POINT_MIN_CASES = ((3, (1, 33, 100_003)), (8, (1, 33, 100_003)),
+                   (256, (1, 33, 100_003, 1_000_003)),
+                   (257, (1, 33, 100_003)))
+
+
+def point_min_inputs(n, f, metric, fp16, seed):
+    """A problem as ``prepare`` leaves it (x in its storage dtype, x_sq,
+    valid; 1% of the rows NaN in the input, so zeroed and invalid) from
+    U(0, 1) rows (unit rows for cosine), fp32 or fp16 input; and two
+    points near valid rows, fp32 (unit for cosine)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand(n, f, generator=g, device="cuda")
+    if metric == D.DistanceMetric.COSINE:
+        x = x / x.norm(dim=1, keepdim=True)
+    x[torch.randperm(n, generator=g, device="cuda")[:n // 100]] = \
+        float("nan")
+    p = prepare(x.half() if fp16 else x, 1, metric, x.device, Logger(0))
+    rows = torch.nonzero(p.valid)[:, 0]
+    pick = rows[torch.randint(0, rows.numel(), (2,), generator=g,
+                              device="cuda")]
+    cs = p.x[pick].float() + 0.01 * torch.rand(2, f, generator=g,
+                                               device="cuda")
+    if metric == D.DistanceMetric.COSINE:
+        cs = cs / cs.norm(dim=1, keepdim=True)
+    return p, cs
+
+
+def point_min_errors(p, c, got, ref, metric):
+    """(max |got - ref|, the valid rows past the tolerance, the valid rows
+    where the kernel is further from fp64 than the twin plus the
+    tolerance) for two first-step outputs (the distances): L2 in the d^2
+    domain within 1e-6 (x_sq + |c|^2), cosine in the cos domain within
+    1e-6 |x| |c|.  The fp64 distance takes c rounded to the storage dtype
+    for the product, |c|^2 from the fp32 c."""
+    xd = p.x.double()
+    cd = c.double()
+    prod = xd @ c.to(p.x.dtype).double()
+    if metric == D.DistanceMetric.L2:
+        tol = 1e-6 * (p.x_sq.double() + (cd * cd).sum())
+        want = (xd * xd).sum(dim=1) - 2.0 * prod + (cd * cd).sum()
+        dom = lambda d: d.double() ** 2
+    else:
+        tol = 1e-6 * xd.norm(dim=1) * cd.norm()
+        want = prod
+        dom = lambda d: torch.cos(d.double())
+    sel = p.valid
+    g, r, w, t = dom(got)[sel], dom(ref)[sel], want[sel], tol[sel]
+    past = int(((g - r).abs() > t).sum())
+    worse = int(((g - w).abs() > (r - w).abs() + t).sum())
+    return float((got - ref).abs().max()), past, worse
+
+
+def check_point_min():
+    """``kmt_point_min`` against its plain twin on the card: fp32 and bf16
+    (fp16 input), L2 and cosine, with invalid rows, at every
+    POINT_MIN_CASES shape.  A first step from each of two points: the
+    distances agree (:func:`point_min_errors`), the kernel is no further
+    from fp64 than the twin plus the tolerance, invalid rows hold 0, a
+    repeat is bitwise.  Then a later step from the twin's first: bitwise
+    the minimum of its input and the kernel's own distances, NaN-free, so
+    never above its input.  Returns the largest |kernel - twin|."""
+    worst = 0.0
+    for f, ns in POINT_MIN_CASES:
+        for n in ns:
+            for fp16 in (False, True):
+                for metric in (D.DistanceMetric.L2, D.DistanceMetric.COSINE):
+                    p, cs = point_min_inputs(n, f, metric, fp16, 5)
+                    args = (p.x, p.x_sq, p.valid)
+                    label = "point_min %dx%d %s %s" % (
+                        n, f, "bf16 (fp16 input)" if fp16 else "fp32",
+                        metric.name)
+                    firsts, errs = [], []
+                    for c in cs:
+                        got, again, ref = (
+                            step(*args, c, torch.empty_like(p.x_sq), metric,
+                                 first=True)
+                            for step in (IK.point_min, IK.point_min,
+                                         IK.point_min_reference))
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, again):
+                            raise AssertionError("%s: no bitwise repeat"
+                                                 % label)
+                        if bool((got[~p.valid] != 0).any()):
+                            raise AssertionError("%s: an invalid row is not "
+                                                 "0" % label)
+                        err, past, worse = point_min_errors(p, c, got, ref,
+                                                            metric)
+                        if past or worse:
+                            raise AssertionError(
+                                "%s: %d rows past the tolerance, %d further "
+                                "from fp64 than the twin" % (label, past,
+                                                             worse))
+                        firsts.append((got, ref))
+                        errs.append(err)
+                    start = firsts[0][1]
+                    later = IK.point_min(*args, cs[1], start.clone(), metric,
+                                         first=False)
+                    if not torch.equal(later, torch.minimum(
+                            start, firsts[1][0])) or bool(
+                                torch.isnan(later).any()):
+                        raise AssertionError("%s: the later step is not the "
+                                             "minimum" % label)
+                    worst = max(worst, *errs)
+                    print("check %s: ok (max |kernel - twin| %s; %d invalid "
+                          "rows at 0; the later step the minimum, bitwise)"
+                          % (label, ", ".join("%.3g" % e for e in errs),
+                             int((~p.valid).sum())), flush=True)
+                    del p, cs, firsts, start, later
+    return worst
+
+
+def check_row_sq_norms(x):
+    """x_sq over row blocks (``ops.distance.row_sq_norms``, at its block
+    size and at 1 MB blocks) against the whole-tensor pass on the card:
+    prints the rows that differ and by how many ulps; where any differs,
+    holds both to fp64 within rtol f * 2**-24.  Returns the differing row
+    count."""
+    n, f = x.shape
+    xf = x.float()
+    whole = torch.sum(xf * xf, dim=-1)
+    del xf
+    differ = 0
+    for block in (D.ROW_BLOCK_BYTES, 1 << 20):
+        saved, D.ROW_BLOCK_BYTES = D.ROW_BLOCK_BYTES, block
+        try:
+            blocks = D.row_blocks(n, f)
+            blocked = D.row_sq_norms(x)
+        finally:
+            D.ROW_BLOCK_BYTES = saved
+        rows = blocked != whole
+        count = int(rows.sum())
+        line = ("x_sq over %d blocks of %d rows vs the whole pass, %dx%d %s: "
+                "%d rows differ" % (len(blocks), blocks[0][1] - blocks[0][0],
+                                    n, f, str(x.dtype)[6:], count))
+        if count:
+            ulps = (blocked.view(torch.int32)
+                    - whole.view(torch.int32)).abs()[rows]
+            x64 = torch.cat([(x[s:e].double() ** 2).sum(dim=1)
+                             for s, e in blocks])
+            line += " (max %d ulps)" % int(ulps.max())
+            for name, got in (("blocked", blocked), ("whole", whole)):
+                rel = float(((got.double() - x64).abs() / x64).max())
+                line += "; %s vs fp64 rtol %.3g" % (name, rel)
+                if rel > f * 2.0**-24:
+                    raise AssertionError("x_sq (%s) past rtol f * 2**-24 of "
+                                         "fp64" % name)
+        else:
+            line += " (bitwise)"
+        print(line, flush=True)
+        differ += count
+    return differ
+
+
+def time_point_min(tag, p, reps):
+    """The init step at a prepared problem's shape, as the loop runs it (a
+    later step, in place): kernel and plain twin in turns (plain, kernel,
+    kernel, plain), then ``torch.mv(x, c)`` with c in the storage dtype
+    (the product only; timed, never called by the port), beside the bound
+    from ``roofline.py``.  Returns {ms, plain_ms, library_ms, library,
+    bound_ms, bound_by}."""
+    n, f = p.x.shape
+    L2 = D.DistanceMetric.L2
+    c = p.x[n // 2].float()
+    m = IK.point_min(p.x, p.x_sq, p.valid, p.x[0].float(),
+                     torch.empty_like(p.x_sq), L2, first=True)
+    cs = c.to(p.x.dtype)
+    name_dt = str(p.x.dtype)[6:]
+    kern = lambda: IK.point_min(p.x, p.x_sq, p.valid, c, m, L2, first=False)
+    plain = lambda: IK.point_min_reference(p.x, p.x_sq, p.valid, c, m, L2,
+                                           first=False)
+    p1 = time_ms(plain, reps)
+    k1 = time_ms(kern, reps)
+    k2 = time_ms(kern, reps)
+    p2 = time_ms(plain, reps)
+    lib_ms = time_ms(lambda: torch.mv(p.x, cs), reps)
+    bnd = R.point_min_bound(n, f, name_dt, first=False)
+    out = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+           "library_ms": lib_ms, "library": "torch.mv(x, c), product only",
+           "bound_ms": bnd["ms"], "bound_by": bnd["by"]}
+    print("%s time point_min %dx%d %s: kernel %.4f ms (%.4f/%.4f), plain "
+          "%.4f ms (%.4f/%.4f), library %.4f ms (torch.mv(x, c), product "
+          "only), bound %.4f ms (%s; %.4g bytes)"
+          % (tag, n, f, name_dt, out["ms"], k1, k2, out["plain_ms"], p1, p2,
+             lib_ms, bnd["ms"], bnd["by"], bnd["bytes"]), flush=True)
+    del m
+    return out
+
+
+def kmeanspp_picks(label, x, k, seed):
+    """k-means++ on ``x`` twice in lockstep, from one set of draws: each
+    step's distances through the kernel and through its plain twin, each
+    path drawing from its own weights.  The picks must be equal; a pick may
+    differ only between two adjacent valid rows, with the draw's uniform
+    between the two paths' cumulative shares through the lower one (see
+    :func:`flip_margin`; checked at the first differing step, whose step
+    and margin print; the paths part there).  Where every pick is equal, they must also be the
+    rows ``init_centroids`` picks on the same problem.  Returns the first
+    differing step or None."""
+    L2 = D.DistanceMetric.L2
+    p = prepare(x, k, L2, x.device, Logger(0))
+    us = torch.rand(k, generator=I.generator(seed)).to(x.device)
+    validf = p.valid.float()
+    first = I._weighted_draw(validf, us[0:1])
+    picks = [int(first)]
+    c = p.x[first[0]].float()
+    ws = [IK.point_min(p.x, p.x_sq, p.valid, c, torch.empty_like(p.x_sq),
+                       L2, first=True),
+          IK.point_min_reference(p.x, p.x_sq, p.valid, c,
+                                 torch.empty_like(p.x_sq), L2, first=True)]
+    parted = None
+    t = time.perf_counter()
+    for i in range(1, k):
+        w = [torch.where(m.sum() > 0, m, validf) for m in ws]
+        got = [int(I._weighted_draw(wi, us[i:i + 1])) for wi in w]
+        if got[0] != got[1]:
+            parted = i
+            flip_margin(label, i, w, float(us[i]), got, p.valid)
+            break
+        picks.append(got[0])
+        if i + 1 < k:
+            c = p.x[got[0]].float()
+            IK.point_min(p.x, p.x_sq, p.valid, c, ws[0], L2, first=False)
+            IK.point_min_reference(p.x, p.x_sq, p.valid, c, ws[1], L2,
+                                   first=False)
+    lock_s = time.perf_counter() - t
+    if parted is None:
+        cent = I.init_centroids(p, I.InitMethod.PLUS_PLUS, seed)
+        if not torch.equal(cent, p.x[torch.tensor(picks, device=x.device)]
+                           .float()):
+            raise AssertionError("%s: init_centroids picks other rows than "
+                                 "the lockstep kernel path" % label)
+    print("%s k-means++ picks (seed %d), kernel vs plain twin in lockstep "
+          "(%.1f s): %s" % (label, seed, lock_s,
+                            "all %d equal, and init_centroids' own" % k
+                            if parted is None else
+                            "equal up to step %d, where the draw's uniform "
+                            "sits on the boundary (above)" % parted),
+          flush=True)
+    del p, ws
+    return parted
+
+
+def flip_margin(label, step, w, u, got, valid):
+    """At a step where the kernel's and the twin's weights ``w`` drew other
+    rows ``got``: the draw is explained only when the two picks are
+    adjacent valid rows and the uniform u lies between the two paths'
+    fp64 cumulative shares through the lower pick, Q_kernel(lo) and
+    Q_twin(lo), widened by no more than the fp32 two-level draw's
+    rounding, (blocks + 24) 2**-24 of the total.  Prints the step, both
+    shares and u's distance outside them; fails otherwise."""
+    lo, hi = min(got), max(got)
+    n = w[0].numel()
+    eps = (n // I._draw_block_size(n) + 24) * 2.0**-24
+    q = [float(wi[:lo + 1].double().sum() / wi.double().sum()) for wi in w]
+    outside = max(min(q) - u, u - max(q), 0.0)
+    between = int(valid[lo + 1:hi].sum())
+    print("%s: k-means++ picks part at step %d: kernel row %d, twin row %d; "
+          "u %.12f; Q(lo) %.12f (kernel), %.12f (twin), %.3g apart; u %.3g "
+          "outside them (draw rounding %.3g); %d valid rows between the "
+          "picks" % (label, step, got[0], got[1], u, q[0], q[1],
+                     abs(q[0] - q[1]), outside, eps, between), flush=True)
+    if between or outside > eps:
+        raise AssertionError("%s: picks part at step %d off the draw's "
+                             "boundary" % (label, step))
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1103,7 +1404,8 @@ def main() -> int:
     print("kernel build %.1f s" % (time.perf_counter() - t0), flush=True)
     kernel_report()
 
-    errs = {"fused_lloyd_pass": 0.0, "assign_only_pass": 0.0}
+    errs = {"fused_lloyd_pass": 0.0, "assign_only_pass": 0.0,
+            "point_min": check_point_min()}
     check_kernels(errs)
     score_ulps()
     times = time_kernels(tag, HEADLINE, torch.float32, 20)
@@ -1115,6 +1417,13 @@ def main() -> int:
     xb = torch.rand(BF16_RUN["n"], BF16_RUN["f"], generator=g,
                     device=dev).to(torch.bfloat16)
     k = HEADLINE["k"]
+    step_times = {}
+    for name, data in (("headline", x), ("bf16_1m", xb)):
+        check_row_sq_norms(data)
+        p = prepare(data, k, D.DistanceMetric.L2, dev, Logger(0))
+        step_times[name] = time_point_min(tag, p, 20)
+        del p
+    kmeanspp_picks("headline 100000x256 fp32 k=1024", x, k, 1)
     headline = dict(init="random", seed=1, tolerance=0.002, yinyang_t=0,
                     max_iterations=15)
     runs = [
@@ -1127,7 +1436,7 @@ def main() -> int:
             xb, k, init="random", seed=1, tolerance=0.002, yinyang_t=0,
             max_iterations=10, verbosity=1)),
     ]
-    total = {name: 0 for name in K.LAUNCHES}
+    total = {name: 0 for name in (*K.LAUNCHES, *IK.LAUNCHES)}
     centroids = None
     iterations = {}
     for label, run in runs:
@@ -1191,11 +1500,9 @@ def main() -> int:
     paths.append(("spherical AFK-MC2", spherical_phase(tag)))
     for label, *counts in paths:
         for launches in counts:
-            for name, count in launches.items():
-                if count == 0:
-                    raise AssertionError("%s: %s never launched"
-                                         % (label, name))
-                total[name] += count
+            require_launched(label, launches, K.LAUNCHES)
+            for name in total:
+                total[name] += launches.get(name, 0)
     check_small_yinyang_agreement()
 
     knn = knn_phase(tag)
@@ -1212,20 +1519,20 @@ def main() -> int:
     knn["launches"] += capi_counts["knn_walk"]
 
     md_counts = multidevice_phase(tag, x)
-    for name in ("fused_lloyd_pass", "assign_only_pass"):
+    for name in total:
         total[name] += md_counts[name]
     knn["launches"] += md_counts["knn_walk"]
     del x
 
     scale = scale_phase(tag, errs)
-    for name in ("fused_lloyd_pass", "assign_only_pass"):
+    for name in total:
         total[name] += scale["launches"][name]
     knn["launches"] += scale["launches"]["knn_walk"]
     knn["max_abs_err"] = max(knn["max_abs_err"], scale["walk_err"])
     knn["k16384"] = {**scale["walk"], "library_ms": None}
 
     bench = bench_phase(tag)
-    for name in ("fused_lloyd_pass", "assign_only_pass"):
+    for name in total:
         total[name] += bench[name]
     knn["launches"] += bench["knn_walk"]
 
@@ -1267,6 +1574,19 @@ def main() -> int:
         "source": "kmcuda_torch/csrc/knn_walk.cu",
         "replaces": "kmcuda_tpu/ops/knn_pallas.py:150", **knn,
         "library_ms": None, "library": "no single call"})
+    # the init step: XLA work in the JAX package (its product at
+    # distance.py:220, in the fori_loop of initialization.py:162-167), a
+    # kernel because the card's profile asked for one
+    kernels.append({
+        "name": "point_min", "route": "cuda",
+        "source": "kmcuda_torch/csrc/init_step.cu",
+        "replaces": "kmcuda_tpu/ops/distance.py:220",
+        "launches": total["point_min"], "max_abs_err": errs["point_min"],
+        **numbers(step_times["headline"]),
+        "library": step_times["headline"]["library"],
+        "shape": "100000x256 fp32",
+        "bf16_1m": numbers(step_times["bf16_1m"]),
+        **{key: numbers(t) for key, t in scale["point_min"].items()}})
     print("%s smoke wall %.1f s" % (tag, time.perf_counter() - t_start),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1699,12 +2019,13 @@ def _ptr(arr) -> int:
 
 
 def _launches() -> dict:
-    return {**K.LAUNCHES, **KK.LAUNCHES}
+    return {**K.LAUNCHES, **KK.LAUNCHES, **IK.LAUNCHES}
 
 
 def _reset_launches():
     K.reset_launch_counts()
     KK.reset_launch_counts()
+    IK.reset_launch_counts()
 
 
 def timed_call(fn):
@@ -1949,9 +2270,9 @@ def capi_phase(tag, x):
     counts = capi_pointer_headline(tag, x)
     for name, count in capi_handle_pipeline(tag).items():
         counts[name] += count
-    for name, count in counts.items():
-        if count == 0:
-            raise AssertionError("capi phase: %s never launched" % name)
+    # both start from imported centroids: no init step runs
+    require_launched("capi phase", counts, ("fused_lloyd_pass",
+                                            "assign_only_pass", "knn_walk"))
     print("capi phase launches (pointer path and handle pipeline): %s"
           % counts, flush=True)
     capi_shim(tag)
@@ -2236,23 +2557,39 @@ def multidevice_phase(tag, x):
     default[4] = (yy, yy_log)
     check_repeat("default call d=4", default[4],
                  run("default call", kmeans(x, dict(dkw, verbosity=2)), 4))
-    # d=2 from the same start over the first iterations, where the
-    # contract is tight; the whole run parts later (PERF.md section 6)
+    # on uniform 256-D data the whole runs part by the shards' fp32 sum
+    # order, as the JAX package's do (tests/test_torch_multidevice.py::
+    # test_whole_runs_part_on_uniform_data): d=2 and d=4 are held to the
+    # contract over the first iterations from one start, and over whole
+    # runs on the data tests/test_kmeans.py:277-309 states it for
     early_kw = dict(dkw, init=picks[1], max_iterations=4, verbosity=2)
     early = {d: run("default call, 4 iterations", kmeans(x, early_kw), d)
-             for d in (1, 2)}
+             for d in SHARD_COUNTS}
+    blobs = torch.from_numpy(blob_fixture()).cuda()
+    bkw = dict(init="kmeans++", seed=3, tolerance=0.01, yinyang_t=0,
+               verbosity=2)
+    whole = {d: run("13K fixture", lambda mask: kmeans_cuda(
+        blobs, 50, device=mask, **bkw), d) for d in SHARD_COUNTS}
     print("multidevice default call 100000x256 fp32 k=1024: k-means++ picks "
           "equal to d=1's at d=2 and d=4 (%d of %d rows); d=4 repeats "
-          "bitwise; Yinyang == Lloyd bitwise at d=4; against d=1: d=4 %s; "
-          "d=2 over its first 4 iterations from the same start %s; d=2 "
-          "whole run %s"
+          "bitwise; Yinyang == Lloyd bitwise at d=4; against d=1 over the "
+          "first 4 iterations from the same start: d=2 %s, d=4 %s; whole "
+          "runs: d=2 %s, d=4 %s"
           % (min(same_picks.values()), k,
-             check_count_contract("default d=4", default[1], default[4]),
              check_count_contract("default d=2, 4 iterations", early[1],
                                   early[2]),
-             check_iteration_counts("default d=2", default[1], default[2])),
+             check_count_contract("default d=4, 4 iterations", early[1],
+                                  early[4]),
+             check_iteration_counts("default d=2", default[1], default[2]),
+             check_iteration_counts("default d=4", default[1], default[4])),
           flush=True)
-    del picks, lloyd, again, default, yy, early
+    print("multidevice 13K fixture (tests/test_kmeans.py:277-309: k=50, "
+          "k-means++ seed 3, tolerance 0.01, Lloyd), whole runs against "
+          "d=1: d=2 %s; d=4 %s"
+          % (check_count_contract("13K fixture d=2", whole[1], whole[2]),
+             check_count_contract("13K fixture d=4", whole[1], whole[4])),
+          flush=True)
+    del picks, lloyd, again, default, yy, early, blobs, whole
 
     # 1M x 256 bf16 Lloyd
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -2443,7 +2780,8 @@ def overflow_run(tag):
         x, k, init="k-means++", seed=3, tolerance=0.142, yinyang_t=0,
         verbosity=1, donate_samples=True))
     print(log, end="", flush=True)
-    require_launched("overflow run", launches, ("fused_lloyd_pass",))
+    require_launched("overflow run", launches, ("point_min",
+                                                "fused_lloyd_pass"))
     if c.shape != (k, f) or a.shape != (n,) or not bool(
             torch.isfinite(c).all()):
         raise AssertionError("overflow run: centroids not (%d, %d) finite"
@@ -2464,8 +2802,10 @@ def overflow_run(tag):
 def bench_8m_run(tag):
     """bench.py:383-439 on the card: one warm run, one timed run and one
     timed run of one iteration, with bench.py's five metrics; k-means++
-    alone on the same data; the argmin on a row sample.  Returns the timed
-    run's launch counts and the metrics."""
+    alone on the same data, its step's distance pass timed
+    (:func:`time_point_min`) and draw; the argmin on a row sample; the peak
+    at most 1.5x the samples; then :func:`numpy_fp16_prepare`.  Returns the
+    timed run's launch counts, the metrics and the step's times."""
     n, f, k = BENCH_8M["n"], BENCH_8M["f"], BENCH_8M["k"]
     x = B.uniform_bf16_rows("cuda")
     kw = dict(init="k-means++", seed=17, tolerance=0.01, yinyang_t=0,
@@ -2478,21 +2818,24 @@ def bench_8m_run(tag):
     run()
     (c, a), log, s8m, launches, peak = run()
     print(log, end="", flush=True)
-    require_launched("8M run", launches, ("fused_lloyd_pass",
+    require_launched("8M run", launches, ("point_min", "fused_lloyd_pass",
                                           "assign_only_pass"))
     iters = count_iterations(log)
     s_init = run(cap=1)[2]
     pp_s, c_pp = timed_init(x, k, D.DistanceMetric.L2,
                             I.InitMethod.PLUS_PLUS, 17)
     # one k-means++ step's two halves: the distance pass over every row
-    # (an fp32 product of the bf16 rows) and the weighted draw
+    # (the init step kernel, timed beside its twin and torch.mv) and the
+    # weighted draw
     p = prepare(x, k, D.DistanceMetric.L2, x.device, Logger(0))
-    dist_ms = time_ms(lambda: D.point_distances(p.x, p.x_sq, c_pp[1],
-                                                D.DistanceMetric.L2), 5)
-    w = D.point_distances(p.x, p.x_sq, c_pp[1], D.DistanceMetric.L2)
+    step = time_point_min(tag, p, 5)
     u = torch.rand(1, device="cuda")
-    draw_ms = time_ms(lambda: I._weighted_draw(w, u), 5)
-    del p, w, c_pp
+    draw_ms = time_ms(lambda: I._weighted_draw(p.x_sq, u), 5)
+    del p, c_pp
+    kmeanspp_picks("8M %dx%d bf16 k=%d" % (n, f, k), x, k, 17)
+    if peak > 1.5 * x.nbytes:
+        raise AssertionError("8M run: peak %s above 1.5x the samples (%s)"
+                             % (gb(peak), gb(x.nbytes)))
     metrics = {
         "kmeans_8mx256_k1024_bf16_tol1pct_wall": (s8m, "s"),
         "kmeans_8mx256_iterations": (iters, "iterations"),
@@ -2507,16 +2850,41 @@ def bench_8m_run(tag):
     rows = sample_rows(n)
     empty, ties = check_result(x, k, c, a, D.DistanceMetric.L2, rows=rows)
     print("%s scale: bench.py 8M config %dx%d bf16 k=%d (k-means++ seed 17, "
-          "tolerance 0.01): wall %.4f s, %d iterations, peak memory %s; "
-          "launches %s; k-means++ alone %.4f s (%.3f ms per step: its "
-          "distance pass %.3f ms, its draw %.3f ms); the argmin, restarted "
-          "from the returned centroids, on %d sampled rows (%d empty "
-          "clusters, %d near-tie rows differ)"
-          % (tag, n, f, k, s8m, iters, gb(peak), launches, pp_s,
-             1e3 * pp_s / (k - 1), dist_ms, draw_ms, rows.numel(), empty,
-             ties), flush=True)
+          "tolerance 0.01): wall %.4f s, %d iterations, peak memory %s "
+          "(%.3fx the samples); launches %s; k-means++ alone %.4f s (%.3f "
+          "ms per step: its distance pass %.3f ms, its draw %.3f ms); the "
+          "argmin, restarted from the returned centroids, on %d sampled "
+          "rows (%d empty clusters, %d near-tie rows differ)"
+          % (tag, n, f, k, s8m, iters, gb(peak), peak / x.nbytes, launches,
+             pp_s, 1e3 * pp_s / (k - 1), step["ms"], draw_ms, rows.numel(),
+             empty, ties), flush=True)
+    numpy_fp16_prepare(tag, x)
     del x, c, a
-    return launches, {name: v for name, (v, _u) in metrics.items()}
+    return launches, {name: v for name, (v, _u) in metrics.items()}, step
+
+
+def numpy_fp16_prepare(tag, x):
+    """What ``prepare`` costs a caller with fp16 numpy samples (the C ABI's
+    and numpy users' path): the host array's rows to the card as bf16,
+    its wall and the card memory it adds at its peak (over what was
+    allocated before it), beside the bf16 samples' bytes; fails above
+    1.5x them (a whole fp16 copy on the card beside the bf16 one would
+    make it 2x)."""
+    xh = x.to(torch.float16).cpu().numpy()
+    gc.collect()
+    before = torch.cuda.memory_allocated()
+    p, _log, wall, _n, peak = timed_call(lambda: prepare(
+        xh, 1024, D.DistanceMetric.L2, x.device, Logger(0)))
+    added = peak - before
+    print("%s prepare of %dx%d fp16 numpy samples: %.4f s, card memory at "
+          "its peak %s above the %s allocated before it (%.3fx the %s of "
+          "bf16 samples)"
+          % (tag, xh.shape[0], xh.shape[1], wall, gb(added), gb(before),
+             added / p.x.nbytes, gb(p.x.nbytes)), flush=True)
+    if added > 1.5 * p.x.nbytes:
+        raise AssertionError("prepare of fp16 numpy samples: %s added, above "
+                             "1.5x the samples" % gb(added))
+    del p, xh
 
 
 def past_2_31_run(tag, errs):
@@ -2565,6 +2933,58 @@ def past_2_31_run(tag, errs):
              rows.numel(), empty, nties), flush=True)
     del x, valid, prev, c0, c, a
     return {name: passes[name] + launches[name] for name in launches}, held
+
+
+def capacity_run(tag):
+    """``capacity.py``'s 40,000,000 x 256 bf16 corpus (20.48 GB of
+    samples) through its call (k-means++ seed 17, tolerance 0.01, 5
+    iterations at most, Lloyd): wall, iterations, k-means++ seconds and ms per step (the
+    init timed inside the call), peak memory, launches; the argmin on a
+    row sample; k-means++'s step timed at this shape.  Fails unless the
+    init step and B1 ran and the peak is at most 1.5x the samples.
+    Returns the launch counts and the step's times."""
+    n, f, k = CAP.N, CAP.F, CAP.K
+    x = CAP.samples()
+    spans = []
+    init = I.init_centroids
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = init(*args, **kwargs)
+        torch.cuda.synchronize()
+        spans.append(time.perf_counter() - t)
+        return out
+
+    I.init_centroids = timed
+    try:
+        (c, a), log, wall, launches, peak = timed_call(
+            lambda: CAP.call(x, verbosity=1))
+    finally:
+        I.init_centroids = init
+    print(log, end="", flush=True)
+    require_launched("capacity run", launches, ("point_min",
+                                                "fused_lloyd_pass"))
+    if peak > 1.5 * x.nbytes:
+        raise AssertionError("capacity run: peak %s above 1.5x the samples "
+                             "(%s)" % (gb(peak), gb(x.nbytes)))
+    rows = sample_rows(n)
+    empty, ties = check_result(x, k, c, a, D.DistanceMetric.L2, rows=rows)
+    del c, a
+    p = prepare(x, k, D.DistanceMetric.L2, x.device, Logger(0))
+    step = time_point_min(tag, p, 3)
+    del p
+    print("%s scale: capacity run %dx%d bf16 k=%d (%s of samples; k-means++ "
+          "seed 17, tolerance 0.01, 5 iterations at most): wall %.4f s, %d "
+          "iterations, k-means++ %.4f s (%.3f ms per step), peak memory %s "
+          "(%.3fx the samples); launches %s; the argmin, restarted from the "
+          "returned centroids, on %d sampled rows (%d empty clusters, %d "
+          "near-tie rows differ)"
+          % (tag, n, f, k, gb(x.nbytes), wall, count_iterations(log),
+             spans[0], 1e3 * spans[0] / (k - 1), gb(peak), peak / x.nbytes,
+             launches, rows.numel(), empty, ties), flush=True)
+    del x
+    return launches, step
 
 
 def knn_large_k_run(tag):
@@ -2662,9 +3082,10 @@ def scale_phase(tag, errs):
     a seed and deleted before the next: the reference's overflow run, the
     kernels timed and held at its shape, bench.py's 8M config, the kernels
     timed and held at its shape, B1/B2 and a k-means run past 2**31
-    elements, kNN at k=16,384 and Yinyang at k=2048.  Returns the phase's
-    launch counts, the kernel times at the two shapes, B1's sums against
-    fp64 past 2**31, and B3's numbers."""
+    elements, the 40M x 256 bf16 capacity run, kNN at k=16,384 and Yinyang
+    at k=2048.  Returns the phase's launch counts, the kernel times at the
+    two shapes, B1's sums against fp64 past 2**31, B3's numbers and the
+    init step's times at 8M and 40M."""
     counts = {name: 0 for name in _launches()}
 
     def add(launches):
@@ -2674,10 +3095,12 @@ def scale_phase(tag, errs):
     t = time.perf_counter()
     add(overflow_run(tag))
     times_167m = time_kernels(tag, OVERFLOW, torch.float32, 2, errs)
-    launches, metrics = bench_8m_run(tag)
+    launches, metrics, step_8m = bench_8m_run(tag)
     add(launches)
     times_8m = time_kernels(tag, BENCH_8M, torch.bfloat16, 2, errs)
     launches, held_9m = past_2_31_run(tag, errs)
+    add(launches)
+    launches, step_40m = capacity_run(tag)
     add(launches)
     walk_launches, walk_err, walk_times = knn_large_k_run(tag)
     counts["knn_walk"] += walk_launches
@@ -2688,7 +3111,9 @@ def scale_phase(tag, errs):
           % (tag, time.perf_counter() - t, counts), flush=True)
     return {"launches": counts, "times_167m": times_167m,
             "times_8m": times_8m, "held_9m": held_9m, "metrics": metrics,
-            "walk_err": walk_err, "walk": walk_times}
+            "walk_err": walk_err, "walk": walk_times,
+            "point_min": {"scale_8m_bf16": step_8m,
+                          "capacity_40m_bf16": step_40m}}
 
 
 # ---------------------------------------------------------------------------

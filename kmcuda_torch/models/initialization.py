@@ -8,7 +8,9 @@ ids) are drawn up front and moved to the device once, and the loops over
 the k centroids never read a device value back, except for a progress
 line.  Over several row shards the distances are computed on their
 shards and each draw reads them on the leader, so the draws are those of
-one device whenever the shards' distances are.
+one device whenever the shards' distances are.  Each step's distances go
+through ``ops.init_kernels.point_min``, one kernel launch per shard on
+the card.
 
 - random: k distinct *valid* rows, uniformly.
 - k-means++: each step draws a row with probability proportional to its
@@ -27,6 +29,7 @@ import torch
 
 from kmcuda_torch import config
 from kmcuda_torch.ops import distance as D
+from kmcuda_torch.ops import init_kernels as IK
 from kmcuda_torch.utils.errors import KMTPUInvalidArguments
 
 
@@ -156,10 +159,13 @@ def _init_plus_plus(problem, gen) -> torch.Tensor:
     mindists = []
     for s, c in zip(p.shards, p.topo.broadcast(cent[0])):
         # invalid rows start at 0 and the minimum keeps them there
-        m = torch.where(s.valid, D.point_distances(s.x, s.x_sq, c, p.metric),
-                        0.0)
-        own = weights[s.start:s.stop].copy_(m)
-        mindists.append((own, own if s.x.device == p.device else m))
+        own = weights[s.start:s.stop]
+        m = (own if s.x.device == p.device
+             else torch.empty(s.stop - s.start, device=s.x.device))
+        IK.point_min(s.x, s.x_sq, s.valid, c, m, p.metric, first=True)
+        if m is not own:
+            own.copy_(m)
+        mindists.append((own, m))
     for i in range(1, k):
         # every valid row already chosen (fewer distinct rows than k): draw
         # among the valid rows instead of the all-zero weights
@@ -168,8 +174,8 @@ def _init_plus_plus(problem, gen) -> torch.Tensor:
         if i + 1 < k:
             for s, (own, m), c in zip(p.shards, mindists,
                                       p.topo.broadcast(cent[i])):
-                torch.minimum(m, D.point_distances(s.x, s.x_sq, c, p.metric),
-                              out=m)
+                IK.point_min(s.x, s.x_sq, s.valid, c, m, p.metric,
+                             first=False)
                 if m is not own:
                     own.copy_(m)
         _progress(p, "kmeans++", i + 1, k)
@@ -217,7 +223,8 @@ def _init_afkmc2(problem, m: int, gen) -> torch.Tensor:
     cent[0:1] = _row(p, _weighted_draw(
         validf, torch.rand(1, generator=gen).to(p.device)))
     d0 = p.topo.gather([
-        torch.where(v, D.point_distances(x, xsq, c, p.metric), 0.0)
+        IK.point_min(x, xsq, v, c, torch.empty_like(xsq), p.metric,
+                     first=True)
         for x, xsq, v, c in zip(p.xs, p.x_sqs, p.valids,
                                 p.topo.broadcast(cent[0]))])
     d0_sq = d0 * d0

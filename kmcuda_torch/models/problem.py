@@ -4,7 +4,9 @@ The port of ``kmcuda_tpu.models.problem.prepare``.  The samples are cut
 into contiguous row shards, one per device of the call's
 :class:`~kmcuda_torch.parallel.devices.Topology` (one shard on one
 device).  Rows with any non-finite value are marked invalid once and
-zeroed, so no kernel ever sees a NaN; they keep the invalid id k.  fp16
+zeroed, so no kernel ever sees a NaN; they keep the invalid id k.  The
+finite test and the squared norms run over row blocks, so no (n, f)
+temporary is stored beside the samples.  fp16
 and bf16 input is stored as bf16, fp32 and fp64 input as fp32.  Nothing
 is padded: the kernels mask their own ragged edge, and the cut never
 pads either, so the shards' rows add up to n.
@@ -15,7 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from kmcuda_torch.ops.distance import DistanceMetric, row_sq_norms
+from kmcuda_torch.ops.distance import DistanceMetric, finite_rows, row_sq_norms
 from kmcuda_torch.parallel.devices import Topology
 from kmcuda_torch.utils.errors import KMTPUInvalidArguments
 
@@ -158,7 +160,7 @@ def prepare(samples, k: int, metric: DistanceMetric, where, logger,
         part = src[start:stop]
         x = part.to(device=dev, dtype=dtype).contiguous()
         owned = x.data_ptr() != part.data_ptr() or (is_tensor and donate)
-        parts.append((x, owned, torch.isfinite(x).all(dim=1)))
+        parts.append((x, owned, finite_rows(x)))
     n_valids = topo.read([valid.sum() for _x, _o, valid in parts])
     shards = []
     for (start, stop), (x, owned, valid), nv in zip(ranges, parts,

@@ -33,6 +33,7 @@ _SIGNATURES = {
     "kmt_assign": [_P] * 10 + [_I] * 5 + [_P],
     "kmt_segment_sum": [_P] * 6 + [_I] * 9 + [_P],
     "kmt_knn_walk": [_P] * 17 + [_I] * 12 + [_P],
+    "kmt_point_min": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

@@ -61,10 +61,38 @@ def rounding_eps(dtype) -> float:
     return 2.0 ** -6
 
 
+#: bytes of one fp32 temporary of the row-blocked passes
+ROW_BLOCK_BYTES = 64 << 20
+
+
+def row_blocks(n: int, f: int) -> list:
+    """(start, stop) row blocks whose fp32 (rows, f) temporaries hold about
+    ROW_BLOCK_BYTES: blocks of a multiple of 64 rows, the last one taking
+    the remainder, so no block is shorter than the others (a reduction
+    over few rows may split its rows otherwise, and change their bits)."""
+    rows = max(64, ROW_BLOCK_BYTES // (4 * max(f, 1)) // 64 * 64)
+    starts = list(range(0, n, rows))[:max(1, n // rows)]
+    return list(zip(starts, starts[1:] + [n]))
+
+
 def row_sq_norms(x: torch.Tensor) -> torch.Tensor:
-    """|x_i|^2 per row, fp32 accumulation regardless of storage dtype."""
-    xf = x.float()
-    return torch.sum(xf * xf, dim=-1)
+    """|x_i|^2 per row, fp32 accumulation regardless of storage dtype, over
+    :func:`row_blocks`, so no (n, f) fp32 temporary is stored; each row's
+    sum is the whole-tensor pass's.  ``x`` is (n, f)."""
+    out = torch.empty((x.shape[0],), dtype=torch.float32, device=x.device)
+    for start, stop in row_blocks(x.shape[0], x.shape[1]):
+        xf = x[start:stop].float()
+        torch.sum(xf * xf, dim=-1, out=out[start:stop])
+    return out
+
+
+def finite_rows(x: torch.Tensor) -> torch.Tensor:
+    """(n,) bool: rows of the (n, f) ``x`` whose values are all finite,
+    over :func:`row_blocks` (no (n, f) bool temporary)."""
+    out = torch.empty((x.shape[0],), dtype=torch.bool, device=x.device)
+    for start, stop in row_blocks(x.shape[0], x.shape[1]):
+        torch.all(torch.isfinite(x[start:stop]), dim=1, out=out[start:stop])
+    return out
 
 
 def scores(x_block, c_t, c_sq, metric: DistanceMetric):

@@ -82,3 +82,13 @@ def walk_bound(examined: int, member_rows: int, queries: int, f: int,
               + 12 * chunks)
     kind = "bf16" if dtype_name == "bfloat16" else "fp32 product"
     return bound(nbytes, {kind: 2.0 * f * examined})
+
+
+def point_min_bound(n: int, f: int, dtype_name: str, *, first: bool) -> dict:
+    """The init step (``kmt_point_min``) over x (n, f) stored as
+    ``dtype_name``: one read of x, of x_sq (fp32) and of the fp32 point c;
+    the first step reads valid (bool) and writes the fp32 running minimum,
+    a later one reads and writes it and never reads valid; 2 f fp32
+    operations a row (a multiply-add per feature)."""
+    per_row = f * _size(dtype_name) + 4 + (1 + 4 if first else 8)
+    return bound(n * per_row + 4 * f, {"fp32": 2.0 * n * f})

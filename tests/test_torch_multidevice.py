@@ -137,6 +137,37 @@ def test_device_count_contract(samples, monkeypatch, d):
                      _kmeans(monkeypatch, samples, 50, d, **kw))
 
 
+@pytest.mark.parametrize("package,seed", [("jax", 3), ("torch", 1)])
+def test_whole_runs_part_on_uniform_data(capsys, monkeypatch, package,
+                                         seed):
+    """The contract above is stated for the blob mixture, not for uniform
+    data: there a row on a knife edge between two centroids flips with the
+    last bit of their sums, and the runs then part by the order in which
+    the shards' sums are added.  From one imported k-means++ start on
+    20,000 x 32 U(0, 1) rows, k=256, the JAX package's 8-device run and
+    the port's 8 shards each follow one device's iteration lines over the
+    first 3 iterations, then part, and end more than 0.2% of the rows
+    apart.  Each package parts on other seeds (their sum orders differ);
+    the seeds here are ones where it does."""
+    n, f, k = 20_000, 32, 256
+    x = np.random.RandomState(seed).rand(n, f).astype(np.float32)
+    p = prepare(torch.from_numpy(x), k, DistanceMetric.L2, CPU, Logger(0))
+    start = I.init_centroids(p, I.InitMethod.PLUS_PLUS, 1).numpy()
+    kw = dict(init=start, tolerance=0.002, yinyang_t=0, verbosity=1)
+    if package == "jax":
+        runs = []
+        for device in (1, 0):
+            _c, a = kmeans_tpu(x, k, device=device, **kw)
+            runs.append((a, _lines(capsys.readouterr().out)))
+    else:
+        runs = [(out[1], _lines(log)) for out, log in (
+            _kmeans(monkeypatch, x, k, d, **kw) for d in (1, 8))]
+    (a1, lines1), (a8, lines8) = runs
+    assert lines1[:3] == lines8[:3]
+    assert lines1 != lines8
+    assert np.sum(a1 != a8) > 0.002 * n
+
+
 def test_one_shard_is_the_tensor_call(samples, monkeypatch):
     kw = dict(init="kmeans++", seed=3, tolerance=0.01, verbosity=1)
     buf = io.StringIO()

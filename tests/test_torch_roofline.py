@@ -86,3 +86,25 @@ def test_walk_bound_counts_bf16_products_at_the_bf16_rate():
     assert b["ms"] == pytest.approx(1e3 * 2.0 * F * 1e9 / 989e12, rel=1e-12)
     assert b["bytes"] == (32 * 256 + 400_000) * F * 2 \
         + 4 * 32 * 256 * 16 + 12 * 32
+
+
+@pytest.mark.parametrize("n,want_ms", [(8_000_000, 1.2513), (40_000_000,
+                                                             6.2567)])
+def test_point_min_bound_is_bytes(n, want_ms):
+    """The init step at n x 256 bf16 as the loop times it, a later step:
+    x read once in bf16, x_sq and the point read, the running minimum read
+    and written, valid never read: n (f * 2 + 12) + 4 f bytes at 3.35
+    TB/s; its 2 f fp32 operations a row at 67 TFLOP/s are a twentieth of
+    that.  The first step reads valid and writes the minimum without
+    reading it, 3 bytes a row fewer."""
+    b = R.point_min_bound(n, F, "bfloat16", first=False)
+    assert b["bytes"] == n * (F * 2 + 12) + 4 * F
+    assert b["ops"] == {"fp32": 2.0 * n * F}
+    assert b["by"] == "bytes"
+    assert b["ms"] == pytest.approx(1e3 * b["bytes"] / 3.35e12, rel=1e-12)
+    assert b["ms"] == pytest.approx(want_ms, rel=1e-4)
+    first = R.point_min_bound(n, F, "bfloat16", first=True)
+    assert first["bytes"] == n * (F * 2 + 4 + 1 + 4) + 4 * F
+    assert b["bytes"] - first["bytes"] == 3 * n
+    fp32 = R.point_min_bound(n, F, "float32", first=False)
+    assert fp32["bytes"] - b["bytes"] == 2 * n * F
