@@ -37,7 +37,13 @@ all the cards (the default call and k-means++ also over one), busy share
 per card and the host's torch op count;
 with one card it says it did not run) and ``shards`` (k-means++ and the
 default call on 1, 2 and 4 logical shards of card 0: walls, picks, and
-traces at 1 and 4 shards with the host's torch op count).  The data is
+traces at 1 and 4 shards with the host's torch op count) and ``lloyd8m``
+(bench.py's 8M config restarted from its centroids after 20 iterations:
+three sparse Lloyd iterations timed, traced, and split into their pieces
+for each sparse arm the checkout has; see :func:`lloyd8m_phase`) and
+``start8m`` (that config's k-means++ picks and first iterations in this
+process, before and after ``chip_smoke.check_delta_sum``; see
+:func:`start8m_phase`).  The data is
 ``chip_smoke.py``'s.  The ``walk`` phase uses only entry points that
 earlier versions of the port have too, so a copy of this script times an
 older checkout's kernel on the same inputs.
@@ -67,12 +73,17 @@ from kmcuda_torch.models import lloyd as L
 from kmcuda_torch.models import yinyang as Y
 from kmcuda_torch.models.problem import prepare
 from kmcuda_torch.parallel.devices import Topology
+from kmcuda_torch.ops import assign as A
+from kmcuda_torch.ops import assign_kernels as K
+from kmcuda_torch.ops import compact as C
 from kmcuda_torch.ops import distance as D
+from kmcuda_torch.ops import init_kernels as IK
 from kmcuda_torch.ops import knn_kernels as KK
 from kmcuda_torch.utils.logging import Logger
 
 PHASES = ("init", "default", "spherical", "bf16", "knn", "walk", "crossover",
-          "yinyang", "tail", "grouping", "devices", "shards")
+          "yinyang", "tail", "grouping", "devices", "shards", "lloyd8m",
+          "start8m")
 
 
 def yinyang_walls(card, label, x, k, **kw):
@@ -180,15 +191,18 @@ def crossover(card, label, x, k, starts, iterations=45):
              len(pairs), float(fx.min()), float(fx.max()), at), flush=True)
 
 
-def traced(card, label, fn, top=14):
+def traced(card, label, fn, top=14, setup=None):
     """One warm run of ``fn`` under the profiler; prints its busy share and
-    its busiest device operations."""
-    fn()
+    its busiest device operations.  With ``setup``, each run is
+    ``fn(setup())``, the setup outside the window."""
+    run = (lambda: fn(setup())) if setup else fn
+    run()
+    arg = setup() if setup else None
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        fn()
+        fn(arg) if setup else fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     intervals = collections.defaultdict(list)
@@ -413,6 +427,164 @@ def shards_phase(card, x, k):
             traced(card, "%s on %d logical shards" % (label, d), fns[d])
 
 
+def sparse_arms() -> list:
+    """(name, moved rows, delta) of each sparse Lloyd arm this checkout
+    has: the sort and the chunk walk of ``ops.compact`` (the one-hot
+    product, the arm before ``kmt_delta_sum``) and, where the checkout has
+    it, the ascending nonzero with ``kmt_delta_sum``.  ``moved(aid, a)``
+    gives the rows, ``delta(x, rows, aid, a, changed, k)`` the (sums,
+    counts) delta."""
+    arms = [("sort + chunk walk",
+             lambda aid, a: C.stable_partition(aid != a)[0],
+             lambda x, rows, aid, a, ch, k: C.delta_compacted(
+                 x, aid, a, rows, ch, n_clusters=k))]
+    if hasattr(K, "delta_sum"):
+        arms.append(("nonzero + kmt_delta_sum", C.moved_rows,
+                     lambda x, rows, aid, a, ch, k: K.delta_sum(
+                         x, rows, aid, a, n_clusters=k)))
+    return arms
+
+
+def lloyd8m_phase(card, restart_at=20, sparse=3):
+    """bench.py's 8M config (8,000,000 x 256 bf16, k=1024, k-means++ seed
+    17, tolerance 0.01) restarted from its centroids and assignment after
+    ``restart_at`` iterations through ``ops.assign.lloyd_run``: its first
+    iteration is dense, the ``sparse`` after it take the sparse arm.
+    Those are timed untraced (min of 2 restarts), traced once (busy share,
+    busiest device operations), and replayed piece by piece with a
+    synchronize after each (B2, the count's read, the moved-row
+    partition, the delta with its chunk count, the running sums and
+    normalize) for each of :func:`sparse_arms`, a warm pass first."""
+    b = S.BENCH_8M
+    k, L2 = b["k"], D.DistanceMetric.L2
+    x = S.B.uniform_bf16_rows("cuda")
+    c0, a0 = kmeans_cuda(x, k, init="k-means++", seed=17, tolerance=0.01,
+                         yinyang_t=0, max_iterations=restart_at)
+    p = prepare(x, k, L2, x.device, Logger(0))
+    label = ("lloyd8m %dx%d bf16 k=%d, restart after %d iterations"
+             % (b["n"], b["f"], k, restart_at))
+
+    def restart():
+        it = A.lloyd_run(p.x, p.valid, a0, c0, n_clusters=k, metric=L2)
+        first = next(it)
+        torch.cuda.synchronize()
+        return it, first
+
+    def run_sparse(state):
+        out = [next(state[0]).changed for _ in range(sparse)]
+        torch.cuda.synchronize()
+        return out
+
+    walls = []
+    for _ in range(2):
+        state = restart()
+        t = time.perf_counter()
+        moved = run_sparse(state)
+        walls.append(time.perf_counter() - t)
+    print("[%s] %s: dense restart iteration %d moved; sparse iterations "
+          "moved %s; untraced %s ms per sparse iteration (%d iterations, "
+          "min of 2: %s s)"
+          % (card, label, state[1].changed, moved, "%.3f" % (
+              1e3 * min(walls) / sparse), sparse,
+             ", ".join("%.4f" % w for w in walls)), flush=True)
+    traced(card, "%s, %d sparse iterations" % (label, sparse), run_sparse,
+           setup=restart)
+    first = restart()[1]
+    for name, moved_rows, delta in sparse_arms():
+        for rep in range(2):
+            a, c = first.assign, first.c_next
+            sums, counts = first.sums, first.counts
+            for i in range(sparse):
+                t = [time.perf_counter()]
+                aid, _best, ch_t = K.assign_only_pass(
+                    p.x, p.valid, a, c, n_clusters=k, metric=L2)
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+                ch = int(ch_t)
+                t.append(time.perf_counter())
+                rows = moved_rows(aid, a)
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+                d_sums, d_counts = delta(p.x, rows, aid, a, ch, k)
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+                sums, counts = sums + d_sums, counts + d_counts
+                c = D.normalize_centroids(sums, counts.float(), L2)
+                torch.cuda.synchronize()
+                t.append(time.perf_counter())
+                a = aid
+                ms = [1e3 * (t1 - t0) for t0, t1 in zip(t, t[1:])]
+                if rep:
+                    print("[%s] %s, %s, sparse iteration %d: %d moved rows "
+                          "(%d chunks of %d); B2 %.3f ms, count read %.3f "
+                          "ms, partition %.3f ms, delta %.3f ms, sums and "
+                          "normalize %.3f ms; %.3f ms in all, %.3f beyond "
+                          "B2" % (card, label, name, i + 1, ch,
+                                  -(-ch // config.DEFAULT_SAMPLE_CHUNK),
+                                  config.DEFAULT_SAMPLE_CHUNK, *ms, sum(ms),
+                                  sum(ms[1:])), flush=True)
+    del x, p, c0, a0
+
+
+def start8m_phase(card, iterations=4):
+    """bench.py's 8M config's start twice in one process: k-means++ (seed
+    17) on a prepared problem and ``kmeans_cuda`` capped at
+    ``iterations`` (verbosity 1), first with nothing run before, then
+    after ``chip_smoke.check_delta_sum`` (what the smoke runs before its
+    8M run); prints the first pick that differs and both runs' iteration
+    lines.  Then k-means++ twice on one prepared problem, and the draw's
+    first-level scan (``torch.cumsum`` of the block sums of one distance
+    pass) 50 times, counting distinct results.  Everything on the path is
+    meant to be a function of the data and the seed."""
+    b = S.BENCH_8M
+    k, L2 = b["k"], D.DistanceMetric.L2
+    x = S.B.uniform_bf16_rows("cuda")
+
+    def start():
+        p = prepare(x, k, L2, x.device, Logger(0))
+        picks = I.init_centroids(p, I.InitMethod.PLUS_PLUS, 17)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            kmeans_cuda(x, k, init="k-means++", seed=17, tolerance=0.01,
+                        yinyang_t=0, verbosity=1, max_iterations=iterations)
+        lines = [l.split(": ")[1].split()[0] for l in
+                 buf.getvalue().splitlines() if l.startswith("iteration ")]
+        del p
+        return picks, lines
+
+    def first_differ(a, b):
+        rows = torch.nonzero((a != b).any(dim=1)).squeeze(1)
+        return ("equal" if rows.numel() == 0
+                else "first differ at step %d" % int(rows[0]))
+
+    fresh = start()
+    S.check_delta_sum("[%s]" % card)
+    after = start()
+    print("[%s] start8m %dx%d bf16 k=%d: k-means++ picks %s; iteration "
+          "counts fresh %s, after the delta check %s"
+          % (card, b["n"], b["f"], k, first_differ(fresh[0], after[0]),
+             fresh[1], after[1]), flush=True)
+    # the same problem twice in a row, then the draw's pieces repeated:
+    # one distance pass and the first level of the draw's inverse CDF (the
+    # cumulative block sums, torch.cumsum on the card)
+    p = prepare(x, k, L2, x.device, Logger(0))
+    picks = [I.init_centroids(p, I.InitMethod.PLUS_PLUS, 17)
+             for _ in range(2)]
+    w = torch.empty_like(p.x_sq)
+    IK.point_min(p.x, p.x_sq, p.valid, p.x[0].float(), w, L2, first=True)
+    bs = I._draw_block_size(w.numel())
+    sums = w.view(-1, bs).sum(1)
+    scans = [torch.cumsum(sums, 0) for _ in range(50)]
+    distinct = len({bytes(t.cpu().numpy().tobytes()) for t in scans})
+    print("[%s] start8m: init_centroids twice on one prepared problem: %s; "
+          "the draw's cumsum over %d block sums, 50 repeats: %d distinct "
+          "results (max |difference| %.3g of a total %.6g)"
+          % (card, first_differ(*picks), sums.numel(), distinct,
+             max(float((t - scans[0]).abs().max()) for t in scans),
+             float(scans[0][-1])), flush=True)
+    del x, p
+
+
 def untraced(card, label, fn, reps=2):
     walls = [S.wall_s(fn) for _ in range(reps)]
     print("[%s] untraced %s: %s s" % (card, label,
@@ -604,6 +776,12 @@ def main(phases) -> int:
 
     if "shards" in phases:
         shards_phase(card, x, k)
+
+    if "lloyd8m" in phases:
+        lloyd8m_phase(card)
+
+    if "start8m" in phases:
+        start8m_phase(card)
 
     print("[%s] peak memory %.2f GB"
           % (card, torch.cuda.max_memory_allocated() / 1e9), flush=True)

@@ -24,6 +24,14 @@ shapes (``check_row_sq_norms``); k-means++ through the kernel and through
 the twin in lockstep at the headline and at 8M (``kmeanspp_picks``: equal
 picks, or a first moved pick explained by the draw's boundary).
 
+The sparse iteration's delta (``kmt_delta_sum``): held against its twin
+(``compact.delta_compacted``, the one-hot product over chunks) and fp64
+sums at 100K fp32, 1M bf16 (and skewed: half the moved rows to one
+cluster), k=16,384, and bench.py's 8M config at the moved-row counts of
+its sparse iterations (79,484, 204,209 and 630,524, and skewed), each
+timed beside the twin, ``index_add_`` of both sides and its bound
+(``check_delta_sum``, ``time_delta_sum``); the 8M run must launch it.
+
 Lloyd: the public ``kmeans_cuda`` at the reference benchmark's headline
 configuration (100,000 x 256 fp32, k=1024, random init, seed 1, tolerance
 0.002, 15 iterations), a 5-iteration restart from its centroids (so the
@@ -159,6 +167,11 @@ Tolerances (kernel vs plain twin on the same tensors):
   its bound within 1e-5 relative of tau; neighbour ids equal except where
   their fp64 distance profiles agree to rtol 1e-6 (ties), bf16 cosine
   included; distances rtol 1e-6 where the ids are equal.
+- The delta (``check_delta_sum``): counts bitwise the twin's and fp64's;
+  sums within 1e-5 of fp64 relative to the magnitude of the sums being
+  differenced (the fp64 sum of |x_r| over both sides of a cluster: each
+  side is an fp32 sum in another order, and the difference can cancel);
+  a repeat bitwise.
 - The init step (``check_point_min``): distances within 1e-6 (x_sq +
   |c|^2) of the twin's in the d^2 domain (L2), within 1e-6 |x| |c| in the
   cos domain (cosine); no further from an fp64 pass than the twin plus
@@ -193,6 +206,7 @@ from kmcuda_torch.models import yinyang as Y
 from kmcuda_torch.models.problem import prepare
 from kmcuda_torch.ops import _build
 from kmcuda_torch.ops import assign_kernels as K
+from kmcuda_torch.ops import compact as C
 from kmcuda_torch.ops import distance as D
 from kmcuda_torch.ops import init_kernels as IK
 from kmcuda_torch.ops import knn_kernels as KK
@@ -343,7 +357,8 @@ def time_ms(fn, reps):
 #: the kernels whose ptxas lines kernel_report prints
 KERNEL_NAMES = ("assign_kernel", "walk_kernel", "seg_count_kernel",
                 "seg_scan_kernel", "seg_starts_kernel", "seg_place_kernel",
-                "seg_reduce_kernel", "seg_fix_kernel", "point_min_kernel")
+                "seg_reduce_kernel", "seg_fix_kernel", "point_min_kernel",
+                "delta_gather_kernel", "delta_diff_kernel")
 
 
 def _kernel_name(mangled: str):
@@ -379,21 +394,22 @@ def kernel_report():
     float_atomics = 0
     for section in sass.split("Function : ")[1:]:
         name = _kernel_name(section.split("\n", 1)[0])
-        if name and not name.startswith(("seg_", "point_min")):
+        if name and not name.startswith(("seg_", "point_min", "delta_")):
             counts[name] = section.count("HGMMA")
-        elif name and name.startswith("seg_"):
+        elif name and name.startswith(("seg_", "delta_")):
             float_atomics += sum(
                 1 for l in section.splitlines()
                 if ("ATOM" in l or "RED" in l) and "F32" in l)
-    print("SASS HGMMA instructions: %s; float atomics in the segment sum: "
-          "%d" % (", ".join("%s %d" % kv for kv in sorted(counts.items())),
+    print("SASS HGMMA instructions: %s; float atomics in the segment sum "
+          "and the delta: %d" % (", ".join("%s %d" % kv for kv in sorted(counts.items())),
                   float_atomics), flush=True)
     for name in ("assign_kernel<bf16>", "assign_kernel<float>",
                  "walk_kernel<bf16>", "walk_kernel<float>"):
         if not counts.get(name):
             raise AssertionError("%s does not run on wgmma" % name)
     if float_atomics:
-        raise AssertionError("the segment sum has float atomics")
+        raise AssertionError("the segment sum or the delta has float "
+                             "atomics")
     return counts
 
 
@@ -1377,6 +1393,160 @@ def flip_margin(label, step, w, u, got, valid):
                              "boundary" % (label, step))
 
 
+# ---------------------------------------------------------------------------
+# The sparse iteration's delta (delta_sum)
+
+#: (n, f, k, dtype, [(moved rows, skewed)]) held kernel against twin and
+#: fp64: 100K fp32 and 1M bf16 (the headline's and the 1M run's shapes, at
+#: moved shares of their sparse iterations), k=16,384, and bench.py's 8M
+#: config at the moved-row counts of its last, a middle and its first
+#: sparse iteration (79,484, 204,209 and 630,524 rows on the card); a
+#: skewed case sends half the moved rows to cluster 0
+DELTA_CASES = (
+    (100_000, 256, 1024, torch.float32, ((8_000, False), (8_000, True))),
+    (1_000_000, 256, 1024, torch.bfloat16, ((80_000, False),
+                                             (80_000, True))),
+    (1_000_000, 256, 16_384, torch.bfloat16, ((80_000, False),)),
+    (8_000_000, 256, 1024, torch.bfloat16,
+     ((79_484, False), (204_209, False), (630_524, False),
+      (204_209, True))),
+)
+#: the case whose times stand at the top of the kernel's entry: bench.py's
+#: 8M config at its middle sparse iteration's moved rows
+DELTA_MAIN = "8000000x256 bfloat16 k=1024 m=204209"
+
+
+def delta_inputs(x, k, m, skew, seed):
+    """A sparse iteration's ids on the card: an old assignment in [0, k)
+    with every 997th row invalid (id k), and m moved rows (ascending,
+    int32) each given another id (an invalid one a valid id); with
+    ``skew`` half of them cluster 0."""
+    n = x.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    old = torch.randint(0, k, (n,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    old[::997] = k
+    rows = torch.sort(torch.randperm(n, generator=g, device="cuda")[:m])[0]
+    new = old.clone()
+    new[rows] = ((old[rows] + torch.randint(
+        1, k, (m,), generator=g, device="cuda", dtype=torch.int32)) % k)
+    if skew:
+        new[rows[::2]] = 0
+    return rows.to(torch.int32), new, old
+
+
+def fp64_delta(x, rows, new, old, k):
+    """(sums, magnitude, counts): the delta in fp64, the fp64 sum of |x_r|
+    over both sides of each cluster, and the int64 counts."""
+    r = rows.long()
+    xs = x[r].double()
+    a_new, a_old = new[r].long(), old[r].long()
+    f = x.shape[1]
+    sums = torch.zeros((k + 1, f), dtype=torch.float64, device=x.device)
+    mag = torch.zeros_like(sums)
+    sums.index_add_(0, a_new, xs).index_add_(0, a_old, -xs)
+    xs.abs_()
+    mag.index_add_(0, a_new, xs).index_add_(0, a_old, xs)
+    counts = (torch.bincount(a_new, minlength=k + 1)
+              - torch.bincount(a_old, minlength=k + 1))
+    return sums[:k], mag[:k], counts[:k]
+
+
+def check_delta_sum(tag):
+    """``kmt_delta_sum`` against its twin (``compact.delta_compacted``, the
+    one-hot product over chunks of 2048 listed rows) and fp64 at every
+    DELTA_CASES case: counts bitwise the twin's and the fp64 counts; sums
+    within rtol 1e-5 of fp64, relative to the magnitude of the sums being
+    differenced (the fp64 sum of |x_r| over both sides of a cluster: each
+    side is an fp32 sum of up to 10^5 rows, and their difference can
+    cancel); a repeat bitwise; then each case timed
+    (:func:`time_delta_sum`).  Returns (the largest |kernel - twin|, the
+    times by case)."""
+    worst, times = 0.0, {}
+    for n, f, k, dtype, ms in DELTA_CASES:
+        g = torch.Generator(device="cuda").manual_seed(n + k)
+        x = torch.rand(n, f, generator=g, device="cuda").to(dtype)
+        for m, skew in ms:
+            label = "%dx%d %s k=%d m=%d%s" % (n, f, str(dtype)[6:], k, m,
+                                            " skewed" if skew else "")
+            rows, new, old = delta_inputs(x, k, m, skew, m + k)
+            got = K.delta_sum(x, rows, new, old, n_clusters=k)
+            again = K.delta_sum(x, rows, new, old, n_clusters=k)
+            twin = C.delta_compacted(x, new, old, rows, m, n_clusters=k)
+            sums64, mag, counts64 = fp64_delta(x, rows, new, old, k)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], again[0])
+                    and torch.equal(got[1], again[1])):
+                raise AssertionError("delta_sum %s: no bitwise repeat"
+                                     % label)
+            if not (torch.equal(got[1], twin[1])
+                    and torch.equal(got[1].long(), counts64)):
+                raise AssertionError("delta_sum %s: counts differ from the "
+                                     "twin's or the fp64 counts" % label)
+            gap = (got[0].double() - sums64).abs()
+            if bool((gap > 1e-5 * mag).any()):
+                raise AssertionError("delta_sum %s: sums past rtol 1e-5 of "
+                                     "fp64" % label)
+            rel = float((gap / mag.clamp(min=1e-30)).max())
+            twin_rel = float(((twin[0].double() - sums64).abs()
+                              / mag.clamp(min=1e-30)).max())
+            err = float((got[0] - twin[0]).abs().max())
+            worst = max(worst, err)
+            plan = K.segment_plan(m, f, k, x.element_size())
+            print("check delta_sum %s: ok; counts bitwise the twin's "
+                  "(largest |d count| %d); max |kernel - twin| %.3g; vs fp64 "
+                  "relative to the sums' magnitude: kernel %.3g, twin %.3g; "
+                  "repeat bitwise (%d chunks of %d)"
+                  % (label, int(got[1].abs().max()), err, rel, twin_rel,
+                     -(-m // plan.chunk), plan.chunk), flush=True)
+            del got, again, twin, sums64, mag, counts64
+            times[label] = time_delta_sum(tag, label, x, rows, new, old, k,
+                                          3 if n * f > 10**8 else 10)
+            del rows, new, old
+        del x
+    return worst, times
+
+
+def time_delta_sum(tag, label, x, rows, new, old, k, reps):
+    """The delta at one case: the kernel (``K.launch_delta_sum``, no
+    checks, no count) and its twin in turns (plain, kernel, kernel,
+    plain), then ``torch.zeros(k + 1, f).index_add_(0, new[L],
+    x[L].float()).index_add_(0, old[L], -x[L].float())`` (timed, never
+    called by the port; row k takes the invalid ids) and the wrapper with
+    its checks; beside the bound from ``roofline.py``.  Returns {ms,
+    plain_ms, library_ms, library, wrapper_ms, bound_ms, bound_by}."""
+    m, f = rows.numel(), x.shape[1]
+    r = rows.long()
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    kern = lambda: K.launch_delta_sum(lib, x, rows, new, old, k, stream)
+    plain = lambda: C.delta_compacted(x, new, old, rows, m, n_clusters=k)
+
+    def library():
+        xs = x[r].float()
+        return torch.zeros((k + 1, f), device=x.device).index_add_(
+            0, new[r].long(), xs).index_add_(0, old[r].long(), -xs)
+    p1 = time_ms(plain, reps)
+    k1 = time_ms(kern, reps)
+    k2 = time_ms(kern, reps)
+    p2 = time_ms(plain, reps)
+    lib_ms = time_ms(library, reps)
+    wrap_ms = time_ms(lambda: K.delta_sum(x, rows, new, old, n_clusters=k),
+                      reps)
+    bnd = R.delta_sum_bound(m, f, k, str(x.dtype)[6:])
+    label_lib = "index_add_ of both sides"
+    out = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+           "library_ms": lib_ms, "library": label_lib, "wrapper_ms": wrap_ms,
+           "bound_ms": bnd["ms"], "bound_by": bnd["by"]}
+    print("%s time delta_sum %s: kernel %.4f ms (%.4f/%.4f), wrapper with "
+          "its checks %.4f ms, plain %.4f ms (%.4f/%.4f), library %.4f ms "
+          "(%s), bound %.4f ms (%s; %.4g bytes)"
+          % (tag, label, out["ms"], k1, k2, wrap_ms,
+             out["plain_ms"], p1, p2, lib_ms, label_lib, bnd["ms"],
+             bnd["by"], bnd["bytes"]), flush=True)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1407,6 +1577,7 @@ def main() -> int:
     errs = {"fused_lloyd_pass": 0.0, "assign_only_pass": 0.0,
             "point_min": check_point_min()}
     check_kernels(errs)
+    errs["delta_sum"], delta_times = check_delta_sum(tag)
     score_ulps()
     times = time_kernels(tag, HEADLINE, torch.float32, 20)
     times_bf16 = time_kernels(tag, BF16_RUN, torch.bfloat16, 5)
@@ -1510,11 +1681,11 @@ def main() -> int:
     knn["launches"] += cos_walks
     knn["max_abs_err"] = max(knn["max_abs_err"],
                              knn["bf16_cos_1m"]["max_abs_err"])
-    for name in ("fused_lloyd_pass", "assign_only_pass"):
+    for name in K.LAUNCHES:
         total[name] += cos_km[name]
 
     capi_counts = capi_phase(tag, x)
-    for name in ("fused_lloyd_pass", "assign_only_pass"):
+    for name in K.LAUNCHES:
         total[name] += capi_counts[name]
     knn["launches"] += capi_counts["knn_walk"]
 
@@ -1587,6 +1758,19 @@ def main() -> int:
         "shape": "100000x256 fp32",
         "bf16_1m": numbers(step_times["bf16_1m"]),
         **{key: numbers(t) for key, t in scale["point_min"].items()}})
+    # the sparse iteration's delta: XLA work in the JAX package
+    # (compact.py:109 delta_compacted, its one-hot chunk product at :86), a
+    # kernel because the card's profile asked for one
+    kernels.append({
+        "name": "delta_sum", "route": "cuda",
+        "source": "kmcuda_torch/csrc/segment.cu",
+        "replaces": "kmcuda_tpu/ops/compact.py:109",
+        "launches": total["delta_sum"], "max_abs_err": errs["delta_sum"],
+        **numbers(delta_times[DELTA_MAIN]),
+        "library": delta_times[DELTA_MAIN]["library"],
+        "shape": DELTA_MAIN,
+        "cases": {label: {**numbers(t), "wrapper_ms": t["wrapper_ms"]}
+                  for label, t in delta_times.items()}})
     print("%s smoke wall %.1f s" % (tag, time.perf_counter() - t_start),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2819,7 +3003,7 @@ def bench_8m_run(tag):
     (c, a), log, s8m, launches, peak = run()
     print(log, end="", flush=True)
     require_launched("8M run", launches, ("point_min", "fused_lloyd_pass",
-                                          "assign_only_pass"))
+                                          "assign_only_pass", "delta_sum"))
     iters = count_iterations(log)
     s_init = run(cap=1)[2]
     pp_s, c_pp = timed_init(x, k, D.DistanceMetric.L2,

@@ -1,10 +1,28 @@
 // Segment sum for Hopper (sm_90a): the centroid sums and counts of a Lloyd
-// pass, sums[a] += x_row and counts[a] += 1 over the rows with 0 <= a < k.
+// pass, sums[a] += x_row and counts[a] += 1 over the rows with 0 <= a < k;
+// and, over a list of moved rows, the delta of a sparse Lloyd iteration.
 //
-// Replaces the one-hot (K, F) sums and counts of the Lloyd Pallas kernel of
-// the JAX package:
+// kmt_segment_sum replaces the one-hot (K, F) sums and counts of the Lloyd
+// Pallas kernel of the JAX package:
 //   kmcuda_tpu/ops/assign_pallas.py:_kernel (fused_lloyd_pass, B1; B1')
 // B1 is kmt_assign (assign.cu) followed by this.
+//
+// kmt_delta_sum replaces the JAX package's moved-row delta, XLA work on the
+// TPU's matrix unit inside the sparse arm of lloyd_run_pallas:
+//   kmcuda_tpu/ops/compact.py:delta_compacted (and its chunk_delta, a
+//   one-hot difference product over chunks of 2048 compacted rows)
+// It takes the moved rows as an ascending list L (m,) and gives
+//   d_sums[c] = sum_{r in L, new[r] = c} x_r - sum_{r in L, old[r] = c} x_r
+// with fp32 accumulation, and d_counts the same difference of counts.  It
+// is the segment sum below run over the list instead of over all rows:
+// one gather of the ids new[L], old[L]; the six passes for the new side,
+// the placement writing the list's row ids into the permutation, so the
+// reduction gathers x_r through L; the same for the old side; one pass
+// subtracting the old side's sums and counts.  The cut is the segment
+// sum's at n = m (ops/assign_kernels.segment_plan), so the summation order
+// is a pure function of (L, new[L], old[L], f, k): within a cluster, list
+// order.  What bounds it: each moved row is read once a side (2 m f size
+// bytes), beside O(m + k f) ids and sums; memory.
 //
 // kmt_segment_sum reads x once, in cluster order, and writes each output
 // once.  The wrapper gives the cut (ops/assign_kernels.segment_plan, a
@@ -150,9 +168,12 @@ seg_starts_kernel(const int32_t *__restrict__ counts,
   if (threadIdx.x == 0) start[k] = carry;
 }
 
+// With a row list, position r stands for row list[r]: the permutation
+// holds list[r], so the reduction gathers that row of x.
 __global__ void __launch_bounds__(THREADS)
 seg_place_kernel(const int32_t *__restrict__ aid, int32_t *__restrict__ hist,
                  const int32_t *__restrict__ start,
+                 const int32_t *__restrict__ list,
                  int32_t *__restrict__ perm, int32_t *__restrict__ seg,
                  int64_t n, int64_t k, int64_t rows, int64_t nb) {
   extern __shared__ int32_t off_s[];
@@ -184,7 +205,7 @@ seg_place_kernel(const int32_t *__restrict__ aid, int32_t *__restrict__ hist,
       __syncthreads();
     }
     if (ok) {
-      perm[pos] = (int32_t)r;
+      perm[pos] = list != nullptr ? list[r] : (int32_t)r;
       seg[pos] = a;
     }
   }
@@ -299,18 +320,52 @@ seg_fix_kernel(const int32_t *__restrict__ start,
   }
 }
 
+// ids_new[p] = assign_new[list[p]], ids_old[p] = assign_old[list[p]];
+// -1 (no cluster) for a list entry outside [0, n).
+__global__ void __launch_bounds__(THREADS)
+delta_gather_kernel(const int32_t *__restrict__ list,
+                    const int32_t *__restrict__ assign_new,
+                    const int32_t *__restrict__ assign_old,
+                    int32_t *__restrict__ ids_new,
+                    int32_t *__restrict__ ids_old, int64_t m, int64_t n) {
+  for (int64_t p = (int64_t)blockIdx.x * THREADS + threadIdx.x; p < m;
+       p += (int64_t)gridDim.x * THREADS) {
+    const int64_t r = list[p];
+    const bool in = r >= 0 && r < n;
+    ids_new[p] = in ? assign_new[r] : -1;
+    ids_old[p] = in ? assign_old[r] : -1;
+  }
+}
+
+// sums -= sums_old over k * f floats, counts -= counts_old over k ints.
+__global__ void __launch_bounds__(THREADS)
+delta_diff_kernel(float *__restrict__ sums,
+                  const float *__restrict__ sums_old,
+                  int32_t *__restrict__ counts,
+                  const int32_t *__restrict__ counts_old, int64_t kf,
+                  int64_t k) {
+  const int64_t stride = (int64_t)gridDim.x * THREADS;
+  for (int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x; i < kf;
+       i += stride) {
+    sums[i] -= sums_old[i];
+    if (i < k) counts[i] -= counts_old[i];
+  }
+}
+
 #define KMT_CHECK()                                  \
   do {                                               \
     const cudaError_t e = cudaGetLastError();        \
     if (e != cudaSuccess) return (int)e;             \
   } while (0)
 
+// The segment sum of x over aid (n entries).  With a row list (n entries),
+// entry p stands for row list[p] of x; without one, for row p.
 template <typename T>
-int launch_segment(const void *x, const void *aid, void *iscratch,
-                   void *fscratch, void *sums, void *counts, int64_t n,
-                   int64_t f, int64_t k, int64_t rows, int64_t chunk,
-                   int64_t tx, int64_t n_iscratch, int64_t n_fscratch,
-                   cudaStream_t stream) {
+int launch_segment(const void *x, const void *aid, const int32_t *list,
+                   void *iscratch, void *fscratch, void *sums, void *counts,
+                   int64_t n, int64_t f, int64_t k, int64_t rows,
+                   int64_t chunk, int64_t tx, int64_t n_iscratch,
+                   int64_t n_fscratch, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   // row ids and positions are int32: n < 2^31
   if (n < 1 || n > INT32_MAX || f < 1 || k < 1 || rows < k || rows % 32 ||
@@ -341,7 +396,7 @@ int launch_segment(const void *x, const void *aid, void *iscratch,
                                                     start, k);
   KMT_CHECK();
   seg_place_kernel<<<(unsigned)nb, THREADS, cnt_smem, stream>>>(
-      a, hist, start, perm, seg, n, k, rows, nb);
+      a, hist, start, list, perm, seg, n, k, rows, nb);
   KMT_CHECK();
   const auto aligned = [](const void *p) { return (uintptr_t)p % 16 == 0; };
   const int vec = aligned(x) && (f * (int64_t)sizeof(T)) % 16 == 0;
@@ -353,6 +408,50 @@ int launch_segment(const void *x, const void *aid, void *iscratch,
   KMT_CHECK();
   seg_fix_kernel<<<(unsigned)k, THREADS, 0, stream>>>(
       start, (const float *)fscratch, (float *)sums, f, chunk);
+  KMT_CHECK();
+  return 0;
+}
+
+// The delta of a sparse Lloyd iteration over the m >= 1 rows of `list`
+// (see kmt_delta_sum).  Integer scratch: ids_new (m) | ids_old (m) |
+// counts_old (k) | the segment sum's at n = m; float scratch: sums_old
+// (k * f) | the segment sum's at n = m.
+template <typename T>
+int launch_delta(const void *x, const void *list, const void *assign_new,
+                 const void *assign_old, void *iscratch, void *fscratch,
+                 void *d_sums, void *d_counts, int64_t n, int64_t m,
+                 int64_t f, int64_t k, int64_t rows, int64_t chunk,
+                 int64_t tx, int64_t n_iscratch, int64_t n_fscratch,
+                 cudaStream_t stream) {
+  if (m < 1 || m > n || n > INT32_MAX || k < 1 || f < 1 ||
+      n_iscratch < 2 * m + k || n_fscratch < k * f)
+    return (int)cudaErrorInvalidValue;
+  int32_t *ids_new = (int32_t *)iscratch;
+  int32_t *ids_old = ids_new + m;
+  int32_t *counts_old = ids_old + m;
+  int32_t *seg_i = counts_old + k;
+  float *sums_old = (float *)fscratch;
+  float *seg_f = sums_old + k * f;
+  const auto l = (const int32_t *)list;
+  const int64_t gblocks = (m + THREADS - 1) / THREADS;
+  delta_gather_kernel<<<(unsigned)(gblocks < 4096 ? gblocks : 4096), THREADS,
+                        0, stream>>>(l, (const int32_t *)assign_new,
+                                     (const int32_t *)assign_old, ids_new,
+                                     ids_old, m, n);
+  KMT_CHECK();
+  int code = launch_segment<T>(x, ids_new, l, seg_i, seg_f, d_sums, d_counts,
+                               m, f, k, rows, chunk, tx,
+                               n_iscratch - 2 * m - k, n_fscratch - k * f,
+                               stream);
+  if (code) return code;
+  code = launch_segment<T>(x, ids_old, l, seg_i, seg_f, sums_old, counts_old,
+                           m, f, k, rows, chunk, tx, n_iscratch - 2 * m - k,
+                           n_fscratch - k * f, stream);
+  if (code) return code;
+  const int64_t dblocks = (k * f + THREADS - 1) / THREADS;
+  delta_diff_kernel<<<(unsigned)(dblocks < 4096 ? dblocks : 4096), THREADS, 0,
+                      stream>>>((float *)d_sums, sums_old,
+                                (int32_t *)d_counts, counts_old, k * f, k);
   KMT_CHECK();
   return 0;
 }
@@ -378,11 +477,37 @@ int kmt_segment_sum(const void *x, const void *aid, void *iscratch,
                     int64_t is_bf16, void *stream) {
   if (is_bf16)
     return launch_segment<__nv_bfloat16>(
-        x, aid, iscratch, fscratch, sums, counts, n, f, k, rows, chunk, tx,
-        n_iscratch, n_fscratch, (cudaStream_t)stream);
-  return launch_segment<float>(x, aid, iscratch, fscratch, sums, counts, n,
-                               f, k, rows, chunk, tx, n_iscratch, n_fscratch,
-                               (cudaStream_t)stream);
+        x, aid, nullptr, iscratch, fscratch, sums, counts, n, f, k, rows,
+        chunk, tx, n_iscratch, n_fscratch, (cudaStream_t)stream);
+  return launch_segment<float>(x, aid, nullptr, iscratch, fscratch, sums,
+                               counts, n, f, k, rows, chunk, tx, n_iscratch,
+                               n_fscratch, (cudaStream_t)stream);
+}
+
+// The centroid delta of a sparse Lloyd iteration: d_sums (k, f) fp32 and
+// d_counts (k,) int32 over the m >= 1 rows of the ascending int32 list
+// `rows` of x (n, f): rows with assign_new = c add, rows with assign_old = c
+// subtract; ids outside [0, k) add nothing.  The cut (`rows_per_block`,
+// `chunk`, `tx`) is ops/assign_kernels.segment_plan(m, f, k, size); the
+// scratch holds n_iscratch int32 and n_fscratch floats, at least 2 m + k
+// and k f more than that cut's.  Returns cudaErrorInvalidValue for m < 1,
+// m > n, n >= 2^31, a cut it does not take or scratch too short, else the
+// first CUDA error code of its launches, or 0.
+int kmt_delta_sum(const void *x, const void *rows, const void *assign_new,
+                  const void *assign_old, void *iscratch, void *fscratch,
+                  void *d_sums, void *d_counts, int64_t n, int64_t m,
+                  int64_t f, int64_t k, int64_t rows_per_block,
+                  int64_t chunk, int64_t tx, int64_t n_iscratch,
+                  int64_t n_fscratch, int64_t is_bf16, void *stream) {
+  if (is_bf16)
+    return launch_delta<__nv_bfloat16>(
+        x, rows, assign_new, assign_old, iscratch, fscratch, d_sums,
+        d_counts, n, m, f, k, rows_per_block, chunk, tx, n_iscratch,
+        n_fscratch, (cudaStream_t)stream);
+  return launch_delta<float>(x, rows, assign_new, assign_old, iscratch,
+                             fscratch, d_sums, d_counts, n, m, f, k,
+                             rows_per_block, chunk, tx, n_iscratch,
+                             n_fscratch, (cudaStream_t)stream);
 }
 
 }  // extern "C"

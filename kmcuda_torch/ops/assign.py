@@ -1,14 +1,16 @@
 """Panel build, stagnation rule and the churn-adaptive Lloyd loop.
 
 The port of the parts of ``kmcuda_tpu.ops.assign`` that the Lloyd path
-runs.  :func:`lloyd_run` is a host loop around the two kernel entries of
+runs.  :func:`lloyd_run` is a host loop around the kernel entries of
 ``ops.assign_kernels`` (the TPU version is the on-device while-loop
 ``lloyd_run_pallas``): high-churn iterations run the fused pass, whose full
 segment sum REPLACES the running sums; low-churn iterations run the
-assignment-only pass plus the compacted delta of the moved rows, which is
-ADDED to them.  The arm is chosen from the previous iteration's count.
-Each iteration pays one host sync, to read its reassignment count — the
-same sync the reference kmcuda pays in ``check_changed``.
+assignment-only pass plus the delta of the moved rows (``delta_sum``, over
+the ascending list ``compact.moved_rows``), which is ADDED to them.  The
+arm is chosen from the previous iteration's count.  Each iteration pays
+one host sync, to read its reassignment count — the same sync the
+reference kmcuda pays in ``check_changed`` — and a sparse one two more:
+sizing the moved-row list and ``delta_sum``'s check of it.
 
 The loop runs over row shards (``parallel.devices``): every iteration
 launches each shard's pass on its device, then reduces the shards' sums,
@@ -114,15 +116,10 @@ def lloyd_run(x, valid, assign, centroids, *, n_clusters: int,
         else:
             outs = [K.assign_only_pass(xi, vi, ai, ci, **kw)
                     for xi, vi, ai, ci in zip(xs, valids, assigns, cs)]
-            # the iteration's one sync: the counts are also the compacted
-            # walks' trip counts
-            per = topo.read([o[2] for o in outs])
-            changed = sum(per)
-            deltas = []
-            for xi, ai, o, ch in zip(xs, assigns, outs, per):
-                order, _ = C.stable_partition(o[0] != ai)
-                deltas.append(C.delta_compacted(xi, o[0], ai, order, ch,
-                                                n_clusters=k))
+            changed = sum(topo.read([o[2] for o in outs]))
+            deltas = [K.delta_sum(xi, C.moved_rows(o[0], ai), o[0], ai,
+                                  n_clusters=k)
+                      for xi, ai, o in zip(xs, assigns, outs)]
             sums = sums + topo.reduce([d[0] for d in deltas])
             counts = counts + topo.reduce([d[1] for d in deltas])
             c_next = D.normalize_centroids(sums, counts.float(), metric)

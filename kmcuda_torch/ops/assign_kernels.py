@@ -1,10 +1,15 @@
-"""The two Lloyd kernel entries and their plain-torch twins.
+"""The Lloyd kernel entries and their plain-torch twins.
 
 - :func:`fused_lloyd_pass` (B1) — scores, rescored argmin, reassignment
   count and the full centroid segment sum in one pass; replaces
   ``kmcuda_tpu/ops/assign_pallas.py:_kernel``.
 - :func:`assign_only_pass` (B2) — the same without the segment sum;
   replaces ``_kernel_assign_only``.
+- :func:`delta_sum` — the centroid delta of a sparse iteration's moved
+  rows (``csrc/segment.cu:kmt_delta_sum``, the segment sum run over the
+  row list); replaces the JAX package's ``compact.delta_compacted``, XLA
+  work on the TPU, whose port :func:`compact.delta_compacted` is its
+  plain twin.
 
 On a CUDA tensor each wrapper launches the hand-written kernels of
 ``csrc/assign.cu`` (B2) and ``csrc/segment.cu`` (the segment sum), built
@@ -22,12 +27,13 @@ import torch
 
 from kmcuda_torch import config
 from kmcuda_torch.ops import _build
+from kmcuda_torch.ops import compact as C
 from kmcuda_torch.ops import distance as D
 from kmcuda_torch.ops.assign import pad_clusters, rescore_table
 from kmcuda_torch.utils.errors import KMTPUInvalidArguments
 
 #: kernel launches per entry; a wrapper adds one where it launches
-LAUNCHES = {"fused_lloyd_pass": 0, "assign_only_pass": 0}
+LAUNCHES = {"fused_lloyd_pass": 0, "assign_only_pass": 0, "delta_sum": 0}
 
 #: the plain twins score this many (row, centroid) pairs per chunk
 REFERENCE_CHUNK_ELEMENTS = 1 << 26
@@ -205,6 +211,101 @@ def fused_lloyd_pass(x, valid, prev_assign, centroids, *, n_clusters: int,
         sums, counts = launch_segment_sum(lib, x, aid, k, stream)
     LAUNCHES["fused_lloyd_pass"] += 1
     return aid, best, sums, counts, changed
+
+
+def _check_delta_args(x, rows, assign_new, assign_old, k: int) -> None:
+    for name, t in (("x", x), ("rows", rows), ("assign_new", assign_new),
+                    ("assign_old", assign_old)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError("%s must be a torch.Tensor" % name)
+        if t.device != x.device:
+            raise KMTPUInvalidArguments(
+                "%s is on %s, x on %s" % (name, t.device, x.device))
+    if x.device.type not in ("cpu", "cuda"):
+        raise KMTPUInvalidArguments("unsupported device %s" % x.device)
+    if x.dim() != 2 or x.dtype not in (torch.float32, torch.bfloat16):
+        raise KMTPUInvalidArguments(
+            "x must be (n, f) float32 or bfloat16, got %s %s"
+            % (tuple(x.shape), x.dtype))
+    n = x.shape[0]
+    if not 1 <= n <= config.MAX_SAMPLES or not 1 <= k < 2**31 - 1:
+        raise KMTPUInvalidArguments(
+            "need 1 <= n <= %d and 1 <= k < 2**31 - 1, got n=%d, k=%d"
+            % (config.MAX_SAMPLES, n, k))
+    if rows.dim() != 1 or rows.dtype != torch.int32:
+        raise KMTPUInvalidArguments("rows must be (m,) int32, got %s %s"
+                                    % (tuple(rows.shape), rows.dtype))
+    for name, t in (("assign_new", assign_new), ("assign_old", assign_old)):
+        if t.shape != (n,) or t.dtype != torch.int32:
+            raise KMTPUInvalidArguments("%s must be (%d,) int32" % (name, n))
+    for name, t in (("x", x), ("rows", rows), ("assign_new", assign_new),
+                    ("assign_old", assign_old)):
+        if not t.is_contiguous():
+            raise KMTPUInvalidArguments("%s must be contiguous" % name)
+    if rows.numel() == 0:
+        return
+    # the list's order and range and the listed ids' range, one device read
+    r = rows.long()
+    inside = r.clamp(0, n - 1)
+    ids = torch.stack([assign_new[inside], assign_old[inside]])
+    ascending, first, last, low, high = torch.stack([
+        (r[1:] > r[:-1]).all(), r[0], r[-1], ids.min(), ids.max()]).tolist()
+    if not ascending or first < 0 or last >= n:
+        raise KMTPUInvalidArguments(
+            "rows must ascend strictly within [0, %d)" % n)
+    if low < 0 or high > k:
+        raise KMTPUInvalidArguments(
+            "the listed rows' ids must lie in [0, %d] (%d is no cluster), "
+            "got [%d, %d]" % (k, k, low, high))
+
+
+def delta_sum(x, rows, assign_new, assign_old, *, n_clusters: int):
+    """The centroid delta of the moved rows ``rows`` (ascending (m,) int32
+    row ids of x): (d_sums (K, F) fp32, d_counts (K,) int32), where a row
+    adds x_r to cluster ``assign_new[r]`` and subtracts it from
+    ``assign_old[r]``; id K (an invalid row) is no cluster.  On a CUDA
+    tensor ``kmt_delta_sum`` (the summation order a pure function of the
+    list, its ids, f and K; m = 0 launches nothing); on a CPU tensor the
+    plain twin, ``compact.delta_compacted`` over the list."""
+    k = n_clusters
+    _check_delta_args(x, rows, assign_new, assign_old, k)
+    m = rows.numel()
+    if x.device.type == "cpu":
+        return C.delta_compacted(x, assign_new, assign_old, rows, m,
+                                 n_clusters=k)
+    if m == 0:
+        return (torch.zeros((k, x.shape[1]), dtype=torch.float32,
+                            device=x.device),
+                torch.zeros((k,), dtype=torch.int32, device=x.device))
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        out = launch_delta_sum(lib, x, rows, assign_new, assign_old, k,
+                               torch.cuda.current_stream().cuda_stream)
+    LAUNCHES["delta_sum"] += 1
+    return out
+
+
+def launch_delta_sum(lib, x, rows, assign_new, assign_old, k, stream):
+    """``kmt_delta_sum`` over m >= 1 checked rows: (d_sums (k, f) fp32,
+    d_counts (k,) int32).  The launch of :func:`delta_sum`, without its
+    checks; counts no launch of its own."""
+    n, f = x.shape
+    m = rows.numel()
+    plan = segment_plan(m, f, k, x.element_size())
+    d_sums = torch.empty((k, f), dtype=torch.float32, device=x.device)
+    d_counts = torch.empty((k,), dtype=torch.int32, device=x.device)
+    iscratch = torch.empty((2 * m + k + plan.int_scratch,),
+                           dtype=torch.int32, device=x.device)
+    fscratch = torch.empty((k * f + plan.float_scratch,),
+                           dtype=torch.float32, device=x.device)
+    code = lib.kmt_delta_sum(
+        x.data_ptr(), rows.data_ptr(), assign_new.data_ptr(),
+        assign_old.data_ptr(), iscratch.data_ptr(), fscratch.data_ptr(),
+        d_sums.data_ptr(), d_counts.data_ptr(), n, m, f, k, plan.rows,
+        plan.chunk, plan.tx, iscratch.numel(), fscratch.numel(),
+        int(x.dtype == torch.bfloat16), stream)
+    _build.check(lib, code, "kmt_delta_sum")
+    return d_sums, d_counts
 
 
 def assign_only_pass_reference(x, valid, prev_assign, centroids, *,

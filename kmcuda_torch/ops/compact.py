@@ -1,13 +1,16 @@
 """Stable compaction + incremental centroid updates, in plain torch.
 
 The port of ``kmcuda_tpu.ops.compact``.  At low churn the Lloyd loop
-(``ops.assign.lloyd_run``) compacts the reassigned rows to the front with
-:func:`stable_partition` and adds only their one-hot-difference delta to
-the running centroid sums (:func:`delta_compacted`) — work proportional to
-the number of moved rows.  The dense/compacted choice is
+(``ops.assign.lloyd_run``) takes the reassigned rows in ascending order
+(:func:`moved_rows`, the rows :func:`stable_partition` compacts to the
+front) and adds only their delta to the running centroid sums — work
+proportional to the number of moved rows.  The
+delta is ``ops.assign_kernels.delta_sum``: the hand-written
+``kmt_delta_sum`` on a CUDA tensor, :func:`delta_compacted` here (its
+plain twin, the JAX package's chunked one-hot product, a plain
+``torch.matmul`` in fp32) on a CPU one.  The dense/compacted choice is
 :func:`predict_dense` of the *previous* iteration's count, a pure function
-of the trajectory.  These ran outside any kernel on the TPU too, so the
-one-hot-difference product is a plain ``torch.matmul`` (in fp32).
+of the trajectory.
 """
 
 import numpy as np
@@ -34,6 +37,14 @@ def stable_partition(mask: torch.Tensor):
     keys = torch.logical_not(mask).to(torch.uint8)
     order = torch.sort(keys, stable=True).indices
     return order, mask.sum()
+
+
+def moved_rows(assign_new: torch.Tensor,
+               assign_old: torch.Tensor) -> torch.Tensor:
+    """The rows whose assignment changed, ascending, int32: the rows
+    ``stable_partition(assign_new != assign_old)`` puts first, in its
+    order, without sorting n keys.  Sizing the list reads the device."""
+    return torch.nonzero(assign_new != assign_old).squeeze(1).to(torch.int32)
 
 
 def chunk_delta(xb, anew, aold, d_sums, d_counts):

@@ -25,7 +25,7 @@ decisions are made apart each iteration:
 
 - the *sum arm* is ``compact.predict_dense`` of the previous count, as in
   Lloyd: B1 over all rows, whose segment sum replaces the sums, or the
-  moved rows, in ascending order, into ``compact.delta_compacted``, whose
+  moved rows, in ascending order, into ``assign_kernels.delta_sum``, whose
   delta is added;
 - the *bound path*: dense on the first iteration, when the controller has
   revoked the sparse branch (:class:`Schedule`), or when more than
@@ -483,8 +483,8 @@ def yy_run(x, x_sq, valid, assign, c_used, sums, counts, prev_changed: int,
                     for xi, vi, ai, ci in zip(xs, valids, assigns, cs)]
             aids = [o[0] for o in outs]
             per = topo.read([o[2] for o in outs])
-            moved = [C.stable_partition(aid != a)[0][:ch]
-                     for aid, a, ch in zip(aids, assigns, per)]
+            moved = [torch.nonzero(aid != a).squeeze(1)
+                     for aid, a in zip(aids, assigns)]
         else:
             aids, per, moved = list(assigns), [0] * d, []
             launched = []
@@ -503,9 +503,9 @@ def yy_run(x, x_sq, valid, assign, c_used, sums, counts, prev_changed: int,
                 per[i] = ch
         changed = sum(per)
         if moved is not None:
-            deltas = [C.delta_compacted(xi, aid, a, mv, ch, n_clusters=k)
-                      for xi, aid, a, mv, ch in zip(xs, aids, assigns, moved,
-                                                    per)]
+            deltas = [K.delta_sum(xi, mv.to(torch.int32), aid, a,
+                                  n_clusters=k)
+                      for xi, aid, a, mv in zip(xs, aids, assigns, moved)]
             sums = sums + topo.reduce([dl[0] for dl in deltas])
             counts = counts + topo.reduce([dl[1] for dl in deltas])
         passed = n_valid if dense else sum(r.numel() for r in rowss)

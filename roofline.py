@@ -92,3 +92,14 @@ def point_min_bound(n: int, f: int, dtype_name: str, *, first: bool) -> dict:
     operations a row (a multiply-add per feature)."""
     per_row = f * _size(dtype_name) + 4 + (1 + 4 if first else 8)
     return bound(n * per_row + 4 * f, {"fp32": 2.0 * n * f})
+
+
+def delta_sum_bound(m: int, f: int, k: int, dtype_name: str) -> dict:
+    """The sparse iteration's delta (``kmt_delta_sum``) over m moved rows of
+    x (n, f) stored as ``dtype_name``: one read of each moved row, of the
+    int32 row list and of the two ids a listed row carries, one write of
+    the (k, f) fp32 delta and the int32 counts; each moved row is added to
+    one cluster and taken from another, 2 m f fp32 adds.  The kernel reads
+    each moved row once a side, twice the rows' bytes here."""
+    nbytes = m * f * _size(dtype_name) + 12 * m + 4 * k * f + 4 * k
+    return bound(nbytes, {"fp32": 2.0 * m * f})

@@ -108,3 +108,17 @@ def test_point_min_bound_is_bytes(n, want_ms):
     assert b["bytes"] - first["bytes"] == 3 * n
     fp32 = R.point_min_bound(n, F, "float32", first=False)
     assert fp32["bytes"] - b["bytes"] == 2 * n * F
+
+
+@pytest.mark.parametrize("m", [79_484, 204_209, 630_524])
+def test_delta_sum_bound_reads_each_moved_row_once(m):
+    """The sparse delta at bench.py's 8M config (f=256, k=1024, bf16) with
+    the moved-row counts of its last, a middle and its first sparse
+    iteration: the listed rows once, the list and both ids (12 bytes a
+    row), the (k, f) fp32 delta and the counts; bound by bytes."""
+    b = R.delta_sum_bound(m, F, K, "bfloat16")
+    want = m * F * 2 + 12 * m + 4 * K * F + 4 * K
+    assert b["bytes"] == want
+    assert b["ops"] == {"fp32": 2.0 * m * F}
+    assert b["by"] == "bytes"
+    assert b["ms"] == pytest.approx(1e3 * want / 3.35e12, rel=1e-12)
