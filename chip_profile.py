@@ -41,9 +41,14 @@ traces at 1 and 4 shards with the host's torch op count) and ``lloyd8m``
 (bench.py's 8M config restarted from its centroids after 20 iterations:
 three sparse Lloyd iterations timed, traced, and split into their pieces
 for each sparse arm the checkout has; see :func:`lloyd8m_phase`) and
-``start8m`` (that config's k-means++ picks and first iterations in this
-process, before and after ``chip_smoke.check_delta_sum``; see
-:func:`start8m_phase`).  The data is
+``start8m`` (that config's start idle, after
+``chip_smoke.check_delta_sum``, beside a busy stream and in a second
+process: the torch draw's pieces, the kernel draw, the picks and the
+iteration counts; see :func:`start8m_phase`) and ``b1hash`` (digests of
+B1''s sums at three shapes, to compare trees; :func:`b1hash_phase`) and
+``deltapasses`` and ``b1passes`` (``kmt_delta_sum`` and B1' pass by
+pass at three shapes each; :func:`deltapasses_phase`,
+:func:`b1passes_phase`).  The data is
 ``chip_smoke.py``'s.  The ``walk`` phase uses only entry points that
 earlier versions of the port have too, so a copy of this script times an
 older checkout's kernel on the same inputs.
@@ -57,7 +62,11 @@ line carries the card's name and power limit.
 
 import collections
 import contextlib
+import hashlib
 import io
+import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -73,6 +82,7 @@ from kmcuda_torch.models import lloyd as L
 from kmcuda_torch.models import yinyang as Y
 from kmcuda_torch.models.problem import prepare
 from kmcuda_torch.parallel.devices import Topology
+from kmcuda_torch.ops import _build
 from kmcuda_torch.ops import assign as A
 from kmcuda_torch.ops import assign_kernels as K
 from kmcuda_torch.ops import compact as C
@@ -83,7 +93,7 @@ from kmcuda_torch.utils.logging import Logger
 
 PHASES = ("init", "default", "spherical", "bf16", "knn", "walk", "crossover",
           "yinyang", "tail", "grouping", "devices", "shards", "lloyd8m",
-          "start8m")
+          "start8m", "b1hash", "deltapasses", "b1passes")
 
 
 def yinyang_walls(card, label, x, k, **kw):
@@ -526,63 +536,397 @@ def lloyd8m_phase(card, restart_at=20, sparse=3):
     del x, p, c0, a0
 
 
+#: what start8m's child process prints before its JSON line
+CHILD_TAG = "start8m child: "
+
+
+def _digest(t) -> str:
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def torch_block_size(n: int) -> int:
+    """Inner-block length of the torch draw the port ran before
+    ``kmt_weighted_draw`` (kept here to reproduce its fault): the largest
+    power of two <= 4096 dividing n into at least two blocks (1 = one
+    level)."""
+    cand = 4096
+    while cand >= 2:
+        if n % cand == 0 and n // cand >= 2:
+            return cand
+        cand //= 2
+    return 1
+
+
+def torch_weighted_draw(weights, u):
+    """The torch draw the port ran before ``kmt_weighted_draw``: index ~
+    Categorical(weights) by a two-level inverse CDF, block sums -> a
+    ``torch.cumsum`` picks the block -> one block's ``torch.cumsum`` picks
+    the row.  ``u`` is a (1,) uniform on the weights' device; returns a
+    (1,) int64 index there, with no host sync."""
+    n = weights.shape[0]
+    bs = torch_block_size(n)
+    if bs == 1:
+        cum = torch.cumsum(weights, 0)
+        return I._inverse_cdf(cum, u * cum[-1:])
+    blocks = weights.view(n // bs, bs)
+    cumb = torch.cumsum(blocks.sum(1), 0)
+    t = u * cumb[-1:]
+    j = I._inverse_cdf(cumb, t)
+    before = torch.where(j > 0, cumb[torch.clamp(j - 1, min=0)],
+                         torch.zeros_like(t))
+    cumr = torch.cumsum(blocks.index_select(0, j)[0], 0)
+    return j * bs + I._inverse_cdf(cumr, t - before)
+
+
+def start8m_pieces(x, us):
+    """The 8M start's pieces on the prepared bench.py 8M samples ``x``:
+    the first k-means++ step's weights (one distance pass from row 0), 50
+    scans of their block sums as the torch draw takes them (``torch.cumsum``
+    of ``torch_block_size`` blocks; 15,625 sums of 512 rows at 8M), its
+    whole draw (:func:`torch_weighted_draw`, on the card) and the kernel draw
+    (``weighted_draw``) at each of the uniforms ``us``, and the k-means++
+    start (``init_centroids``, seed 17) through the torch draw
+    (:func:`torch_draw_start`) and through the kernel.  Returns {name: [digest,
+    ...]} and the scans (for their differences)."""
+    L2 = D.DistanceMetric.L2
+    p = prepare(x, S.BENCH_8M["k"], L2, x.device, Logger(0))
+    w = torch.empty_like(p.x_sq)
+    IK.point_min(p.x, p.x_sq, p.valid, p.x[0].float(), w, L2, first=True)
+    bs = torch_block_size(w.numel())
+    sums = w.view(-1, bs).sum(1)
+    scans = [torch.cumsum(sums, 0) for _ in range(50)]
+    old = torch.cat([torch_weighted_draw(w, us[i:i + 1])
+                     for i in range(us.numel())])
+    new = torch.cat([IK.weighted_draw(w, p.valid, us[i:i + 1])
+                     for i in range(us.numel())])
+    start_old = torch_draw_start(p)
+    start = I.init_centroids(p, I.InitMethod.PLUS_PLUS, 17)
+    torch.cuda.synchronize()
+    out = {"weights": [_digest(w)], "block sums": [_digest(sums)],
+           "cumsum": [_digest(t) for t in scans],
+           "torch draws": [_digest(old)], "kernel draws": [_digest(new)],
+           "torch-draw start": [_digest(start_old)],
+           "init_centroids": [_digest(start)]}
+    del p, w
+    return out, scans
+
+
+def torch_draw_start(p):
+    """k-means++ (seed 17) on the prepared problem ``p`` with the torch
+    draw the port ran before the kernel: each step's draw the torch
+    composition (``where(sum > 0)``, :func:`torch_weighted_draw`: block
+    sums, ``torch.cumsum``, ``searchsorted``) and the row through
+    ``Problem.take``; the distances ``point_min``'s."""
+    draw_row = I._draw_row
+
+    def torch_draw(problem, weights, valid, u, out):
+        w = torch.where(weights.sum() > 0, weights, valid.float())
+        out.copy_(I._row(problem, torch_weighted_draw(w, u)))
+    I._draw_row = torch_draw
+    try:
+        return I.init_centroids(p, I.InitMethod.PLUS_PLUS, 17)
+    finally:
+        I._draw_row = draw_row
+
+
+#: the torch draw, piece by piece, in the order its step runs them
+TORCH_DRAW_PIECES = ("weights", "block sums", "cumsum of the block sums",
+               "block", "cumsum in the block", "row")
+
+
+def torch_draw_trace(p):
+    """The torch-draw start (:func:`torch_draw_start`) with every step's
+    pieces kept on the card: the weights' bits summed as integers (an
+    exact fingerprint), the block sums, their ``torch.cumsum``, the chosen
+    block, the cumsum inside it and the row.  Returns {piece: [per
+    step]}."""
+    rec = {piece: [] for piece in TORCH_DRAW_PIECES}
+    draw_row = I._draw_row
+
+    def traced(problem, weights, valid, u, out):
+        w = torch.where(weights.sum() > 0, weights, valid.float())
+        n = w.shape[0]
+        bs = torch_block_size(n)
+        blocks = w.view(n // bs, bs)
+        sums = blocks.sum(1)
+        cumb = torch.cumsum(sums, 0)
+        t = u * cumb[-1:]
+        j = I._inverse_cdf(cumb, t)
+        before = torch.where(j > 0, cumb[torch.clamp(j - 1, min=0)],
+                             torch.zeros_like(t))
+        cumr = torch.cumsum(blocks.index_select(0, j)[0], 0)
+        idx = j * bs + I._inverse_cdf(cumr, t - before)
+        for piece, v in zip(TORCH_DRAW_PIECES, (
+                w.view(torch.int32).sum(dtype=torch.int64), sums, cumb, j,
+                cumr, idx)):
+            rec[piece].append(v)
+        out.copy_(I._row(problem, idx))
+    I._draw_row = traced
+    try:
+        I.init_centroids(p, I.InitMethod.PLUS_PLUS, 17)
+    finally:
+        I._draw_row = draw_row
+    torch.cuda.synchronize()
+    return rec
+
+
+def first_difference(a, b):
+    """The first step where two :func:`torch_draw_trace` records differ and the
+    pieces that differ there, or None."""
+    for step in range(len(a["row"])):
+        differ = [piece for piece in TORCH_DRAW_PIECES
+                  if not torch.equal(a[piece][step], b[piece][step])]
+        if differ:
+            return step, differ
+    return None
+
+
+#: where start8m's child leaves its cumsum scans for the parent to compare
+CHILD_SCANS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "start8m_child_scans.pt")
+
+
+def start8m_uniforms():
+    """64 uniforms from a seed, and the ends of [0, 1), on the card."""
+    return torch.cat([torch.rand(64, generator=torch.Generator()
+                                 .manual_seed(17)),
+                      torch.tensor([0.0, 1.0 - 2.0**-24])]).cuda()
+
+
+def start8m_child():
+    """start8m's second process: the pieces on freshly made samples,
+    printed as one JSON line after CHILD_TAG."""
+    x = S.B.uniform_bf16_rows("cuda")
+    out, scans = start8m_pieces(x, start8m_uniforms())
+    os.makedirs(os.path.dirname(CHILD_SCANS), exist_ok=True)
+    torch.save(torch.stack(scans).cpu(), CHILD_SCANS)
+    print(CHILD_TAG + json.dumps(out), flush=True)
+
+
 def start8m_phase(card, iterations=4):
-    """bench.py's 8M config's start twice in one process: k-means++ (seed
-    17) on a prepared problem and ``kmeans_cuda`` capped at
-    ``iterations`` (verbosity 1), first with nothing run before, then
-    after ``chip_smoke.check_delta_sum`` (what the smoke runs before its
-    8M run); prints the first pick that differs and both runs' iteration
-    lines.  Then k-means++ twice on one prepared problem, and the draw's
-    first-level scan (``torch.cumsum`` of the block sums of one distance
-    pass) 50 times, counting distinct results.  Everything on the path is
-    meant to be a function of the data and the seed."""
+    """bench.py's 8M config's start (8,000,000 x 256 bf16, k=1024, k-means++
+    seed 17) under the conditions that made the torch draw's start part:
+    idle, after ``chip_smoke.check_delta_sum``, with a second stream running B2
+    at 8M while the draw runs, and in a second process.  In each, the
+    pieces of :func:`start8m_pieces`: the torch draw (its 50 cumsum scans of
+    the block sums, its draws at 66 uniforms, its whole start) and the
+    kernel draw and ``init_centroids``; prints per piece the distinct
+    results across the conditions (and the cumsum scans' largest
+    difference, in this process and against the second's), and fails
+    unless the kernel draws and the start repeat.  Then ``kmeans_cuda`` at
+    the config, capped at ``iterations`` and uncapped (tolerance 0.01),
+    idle and after the delta check: the iteration lines and counts, which
+    must be equal."""
     b = S.BENCH_8M
     k, L2 = b["k"], D.DistanceMetric.L2
     x = S.B.uniform_bf16_rows("cuda")
+    us = start8m_uniforms()
+    runs, scans = {}, []
 
-    def start():
+    def record(cond, fn):
+        out, sc = fn()
+        runs[cond] = out
+        scans.extend(sc)
+
+    record("idle", lambda: start8m_pieces(x, us))
+    S.check_delta_sum("[%s]" % card)
+    record("after check_delta_sum", lambda: start8m_pieces(x, us))
+
+    def busy():
         p = prepare(x, k, L2, x.device, Logger(0))
-        picks = I.init_centroids(p, I.InitMethod.PLUS_PLUS, 17)
+        c = p.x[:k].float()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(60):
+                K.assign_only_pass(p.x, p.valid, p.assign0, c, n_clusters=k,
+                                   metric=L2)
+        out = start8m_pieces(x, us)
+        torch.cuda.synchronize()   # p's memory stays until the side ends
+        del p
+        return out
+    record("second stream busy on B2", busy)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_profile as P; P.start8m_child()"],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+        print(proc.stdout + proc.stderr, flush=True)
+        raise AssertionError("start8m: the second process exited %d"
+                             % proc.returncode)
+    line = [l for l in proc.stdout.splitlines() if l.startswith(CHILD_TAG)]
+    runs["second process"] = json.loads(line[-1][len(CHILD_TAG):])
+    for piece in runs["idle"]:
+        seen = {cond: out[piece] for cond, out in runs.items()}
+        distinct = len({d for ds in seen.values() for d in ds})
+        print("[%s] start8m %s: %d distinct result(s) in all; by condition "
+              "(results, distinct): %s" % (
+                  card, piece, distinct, "; ".join(
+                      "%s %d, %d" % (cond, len(ds), len(set(ds)))
+                      for cond, ds in seen.items())), flush=True)
+    diff = max(float((t - scans[0]).abs().max()) for t in scans)
+    child = torch.load(CHILD_SCANS).to(scans[0].device)
+    cdiff = float((child - scans[0]).abs().max())
+    moved = int((child != scans[0]).any(dim=0).sum())
+    print("[%s] start8m: cumsum over %d block sums: %d scans in this "
+          "process, largest |difference| %.3g; the second process's %d "
+          "scans, largest |difference| from this process's %.3g (%d of %d "
+          "prefixes differ), of a total %.6g"
+          % (card, scans[0].numel(), len(scans), diff, child.shape[0],
+             cdiff, moved, scans[0].numel(), float(scans[0][-1])),
+          flush=True)
+    for piece in ("weights", "kernel draws", "init_centroids"):
+        if len({d for out in runs.values() for d in out[piece]}) != 1:
+            raise AssertionError("start8m: %s do not repeat" % piece)
+    del scans
+
+    def iteration_lines(cap):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             kmeans_cuda(x, k, init="k-means++", seed=17, tolerance=0.01,
-                        yinyang_t=0, verbosity=1, max_iterations=iterations)
-        lines = [l.split(": ")[1].split()[0] for l in
-                 buf.getvalue().splitlines() if l.startswith("iteration ")]
-        del p
-        return picks, lines
+                        yinyang_t=0, verbosity=1, max_iterations=cap)
+        return [l.split(": ")[1].split()[0] for l in
+                buf.getvalue().splitlines() if l.startswith("iteration ")]
 
-    def first_differ(a, b):
-        rows = torch.nonzero((a != b).any(dim=1)).squeeze(1)
-        return ("equal" if rows.numel() == 0
-                else "first differ at step %d" % int(rows[0]))
-
-    fresh = start()
-    S.check_delta_sum("[%s]" % card)
-    after = start()
-    print("[%s] start8m %dx%d bf16 k=%d: k-means++ picks %s; iteration "
-          "counts fresh %s, after the delta check %s"
-          % (card, b["n"], b["f"], k, first_differ(fresh[0], after[0]),
-             fresh[1], after[1]), flush=True)
-    # the same problem twice in a row, then the draw's pieces repeated:
-    # one distance pass and the first level of the draw's inverse CDF (the
-    # cumulative block sums, torch.cumsum on the card)
+    # the torch-draw start traced three times: where its runs part, and
+    # which piece of the draw parts first
     p = prepare(x, k, L2, x.device, Logger(0))
-    picks = [I.init_centroids(p, I.InitMethod.PLUS_PLUS, 17)
-             for _ in range(2)]
-    w = torch.empty_like(p.x_sq)
-    IK.point_min(p.x, p.x_sq, p.valid, p.x[0].float(), w, L2, first=True)
-    bs = I._draw_block_size(w.numel())
-    sums = w.view(-1, bs).sum(1)
-    scans = [torch.cumsum(sums, 0) for _ in range(50)]
-    distinct = len({bytes(t.cpu().numpy().tobytes()) for t in scans})
-    print("[%s] start8m: init_centroids twice on one prepared problem: %s; "
-          "the draw's cumsum over %d block sums, 50 repeats: %d distinct "
-          "results (max |difference| %.3g of a total %.6g)"
-          % (card, first_differ(*picks), sums.numel(), distinct,
-             max(float((t - scans[0]).abs().max()) for t in scans),
-             float(scans[0][-1])), flush=True)
-    del x, p
+    traces = [torch_draw_trace(p) for _ in range(3)]
+    del p
+    for i in (1, 2):
+        first = first_difference(traces[0], traces[i])
+        print("[%s] start8m: the torch-draw start traced, run 1 against run "
+              "%d: %s" % (card, i + 1, "equal at every step" if first is None
+                          else "first differ at the draw of centroid %d; the "
+                          "pieces that differ there, in the step's order: %s"
+                          % (first[0], ", ".join(first[1]))), flush=True)
+    del traces
+
+    lines = {}
+    for cond in ("idle", "after check_delta_sum"):
+        if cond != "idle":
+            S.check_delta_sum("[%s]" % card)
+        lines[cond] = (iteration_lines(iterations), len(iteration_lines(None)))
+    print("[%s] start8m %dx%d bf16 k=%d: first %d iteration counts %s; "
+          "whole runs (tolerance 0.01) %s iterations"
+          % (card, b["n"], b["f"], k, iterations,
+             " / ".join(str(v[0]) for v in lines.values()),
+             " / ".join(str(v[1]) for v in lines.values())), flush=True)
+    if len({repr(v) for v in lines.values()}) != 1:
+        raise AssertionError("start8m: the runs differ: %s" % lines)
+    del x
+
+
+#: the shapes of B1' in b1hash and b1passes: (n, f, k, dtype); the last
+#: two are cut into more placement blocks since the delta's redesign
+#: (98 for 7 and 8 for 4: blocks hold max(1024, k) rows no more)
+B1_CASES = ((100_000, 256, 1024, torch.float32),
+            (8_000_000, 256, 1024, torch.bfloat16),
+            (167_772_160, 8, 50, torch.float32),
+            (100_000, 256, 16_384, torch.float32),
+            (8192, 32, 2048, torch.float32))
+
+
+def b1hash_phase(card):
+    """B1' (``kmt_segment_sum`` through ``assign_kernels.
+    launch_segment_sum``, an entry older trees have too) at B1_CASES, on
+    U(0, 1) rows and uniform ids from a seed (every 997th row no
+    cluster): a sha256 of its sums and counts, twice.  A tree whose B1'
+    sums in the same order prints the same digests."""
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for n, f, k, dtype in B1_CASES:
+        g = torch.Generator(device="cuda").manual_seed(n + k)
+        x = torch.rand(n, f, generator=g, device="cuda").to(dtype)
+        aid = torch.randint(0, k, (n,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        aid[::997] = k
+        digests = []
+        for _ in range(2):
+            sums, counts = K.launch_segment_sum(lib, x, aid, k, stream)
+            digests.append(_digest(sums) + "/" + _digest(counts))
+            del sums, counts
+        print("[%s] b1hash %dx%d %s k=%d: sums/counts %s"
+              % (card, n, f, str(dtype)[6:], k, ", ".join(digests)),
+              flush=True)
+        del x, aid
+
+
+#: deltapasses' shapes: (n, f, k, dtype, moved rows)
+DELTA_PASS_CASES = ((8_000_000, 256, 1024, torch.bfloat16, 204_209),
+                    (1_000_000, 256, 16_384, torch.bfloat16, 80_000),
+                    (100_000, 256, 1024, torch.float32, 8_000))
+
+
+def kernel_name(name: str) -> str:
+    """A profiler event's short name: the kernel's own name (and its
+    template argument), or the copy or set as the profiler names it.  (Its
+    own, not ``chip_smoke``'s, so a copy of this script runs beside an
+    older tree's ``chip_smoke.py``.)"""
+    m = re.search(r"(\w+_kernel)(<[\w:]+>)?", name)
+    return "".join(m.groups("")) if m else name.split(" (")[0]
+
+
+def pass_times(card, label, fn, reps):
+    """One call's CUDA-event ms (mean of ``reps``) and, from one profiled
+    window of ``reps`` calls, each device operation's ms and launches a
+    call, by kernel name; printed on one line."""
+    ms = S.time_ms(fn, reps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = kernel_name(e.name)
+            by_name[name][0] += 1
+            by_name[name][1] += (e.time_range.end - e.time_range.start) / 1e3
+    total = sum(v[1] for v in by_name.values()) / reps
+    print("[%s] %s: %.4f ms a call (events), %.4f ms of device operations, "
+          "%d launches a call: %s"
+          % (card, label, ms, total,
+             sum(v[0] for v in by_name.values()) // reps, "; ".join(
+                 "%s %.4f ms x%d" % (name, t / reps, c // reps)
+                 for name, (c, t) in sorted(by_name.items(),
+                                            key=lambda kv: -kv[1][1]))),
+          flush=True)
+
+
+def deltapasses_phase(card, reps=20):
+    """``kmt_delta_sum`` pass by pass (``assign_kernels.launch_delta_sum``,
+    which older trees with the delta have too) at DELTA_PASS_CASES, on
+    ``chip_smoke.delta_inputs`` (:func:`pass_times`)."""
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for n, f, k, dtype, m in DELTA_PASS_CASES:
+        g = torch.Generator(device="cuda").manual_seed(n + k)
+        x = torch.rand(n, f, generator=g, device="cuda").to(dtype)
+        rows, new, old = S.delta_inputs(x, k, m, False, m + k)
+        pass_times(card, "deltapasses %dx%d %s k=%d m=%d" % (
+            n, f, str(dtype)[6:], k, m), lambda: K.launch_delta_sum(
+                lib, x, rows, new, old, k, stream), reps)
+        del x, rows, new, old
+
+
+def b1passes_phase(card):
+    """B1' (``assign_kernels.launch_segment_sum``) pass by pass at the
+    shapes of :func:`b1hash_phase` (:func:`pass_times`)."""
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for n, f, k, dtype in B1_CASES:
+        g = torch.Generator(device="cuda").manual_seed(n + k)
+        x = torch.rand(n, f, generator=g, device="cuda").to(dtype)
+        aid = torch.randint(0, k, (n,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        aid[::997] = k
+        pass_times(card, "b1passes %dx%d %s k=%d" % (n, f, str(dtype)[6:], k),
+                   lambda: K.launch_segment_sum(lib, x, aid, k, stream),
+                   3 if n * f > 10**9 else 10)
+        del x, aid
 
 
 def untraced(card, label, fn, reps=2):
@@ -782,6 +1126,15 @@ def main(phases) -> int:
 
     if "start8m" in phases:
         start8m_phase(card)
+
+    if "b1hash" in phases:
+        b1hash_phase(card)
+
+    if "deltapasses" in phases:
+        deltapasses_phase(card)
+
+    if "b1passes" in phases:
+        b1passes_phase(card)
 
     print("[%s] peak memory %.2f GB"
           % (card, torch.cuda.max_memory_allocated() / 1e9), flush=True)

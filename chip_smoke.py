@@ -20,9 +20,21 @@ cosine, first and later steps, invalid rows, f in 3, 8, 256, 257 and row
 counts at ragged edges), timed beside its twin, ``torch.mv`` (the product
 alone) and its bound at 100K fp32 and 1M bf16, and at 8M and 40M bf16 in
 the scale phase; x_sq over row blocks against the whole pass at both
-shapes (``check_row_sq_norms``); k-means++ through the kernel and through
-the twin in lockstep at the headline and at 8M (``kmeanspp_picks``: equal
+shapes (``check_row_sq_norms``); k-means++ through the kernels and through
+the twins in lockstep at the headline and at 8M (``kmeanspp_picks``: equal
 picks, or a first moved pick explained by the draw's boundary).
+
+The init step's draw (``kmt_weighted_draw``): held bitwise against its
+twin (``init_kernels.weighted_draw_reference``) at 100K fp32, 1M, 8M and
+40M bf16 over a k-means++ step's weights (``check_weighted_draw``: the
+index, the copied row, a repeat, the all-zero fallback), timed beside the
+twin, ``torch.multinomial`` (n <= 2**24) and its bound; k-means++ at the
+headline traced: three launches a step and no copy to the host
+(``kmeanspp_launches``).  The start's repeat gate
+(``start_repeat_gate``): bench.py's 8M k-means++ start bitwise equal
+before and after ``check_delta_sum``, with a second stream busy on B2,
+and from a second process; the bench's 8M run must take this process's
+iteration count.
 
 The sparse iteration's delta (``kmt_delta_sum``): held against its twin
 (``compact.delta_compacted``, the one-hot product over chunks) and fp64
@@ -172,6 +184,8 @@ Tolerances (kernel vs plain twin on the same tensors):
   differenced (the fp64 sum of |x_r| over both sides of a cluster: each
   side is an fp32 sum in another order, and the difference can cancel);
   a repeat bitwise.
+- The draw (``check_weighted_draw``): the index bitwise the twin's (the
+  same tree and order), the copied row bitwise the drawn row as fp32.
 - The init step (``check_point_min``): distances within 1e-6 (x_sq +
   |c|^2) of the twin's in the d^2 domain (L2), within 1e-6 |x| |c| in the
   cos domain (cosine); no further from an fp64 pass than the twin plus
@@ -186,9 +200,11 @@ Tolerances (kernel vs plain twin on the same tensors):
 import contextlib
 import ctypes
 import gc
+import hashlib
 import io
 import json
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -356,9 +372,10 @@ def time_ms(fn, reps):
 
 #: the kernels whose ptxas lines kernel_report prints
 KERNEL_NAMES = ("assign_kernel", "walk_kernel", "seg_count_kernel",
-                "seg_scan_kernel", "seg_starts_kernel", "seg_place_kernel",
-                "seg_reduce_kernel", "seg_fix_kernel", "point_min_kernel",
-                "delta_gather_kernel", "delta_diff_kernel")
+                "seg_tile_kernel", "seg_scan_kernel", "seg_counts_kernel",
+                "seg_place_kernel", "seg_reduce_kernel", "seg_fix_kernel",
+                "point_min_kernel", "draw_partials_kernel",
+                "draw_pick_kernel")
 
 
 def _kernel_name(mangled: str):
@@ -367,8 +384,10 @@ def _kernel_name(mangled: str):
         if name in mangled:
             if name in ("assign_kernel", "walk_kernel", "seg_reduce_kernel",
                         "point_min_kernel"):
-                return "%s<%s>" % (name, "bf16" if "nv_bfloat16" in mangled
-                                   else "float")
+                # the reduction's signed instantiation (the delta's)
+                signed = ", signed" if "ELb1E" in mangled else ""
+                return "%s<%s%s>" % (name, "bf16" if "nv_bfloat16" in mangled
+                                     else "float", signed)
             return name
     return None
 
@@ -377,7 +396,8 @@ def kernel_report():
     """ptxas's registers, shared memory and spills of every kernel (from
     the build log), the HGMMA (wgmma) instructions in the SASS of the
     assignment and walk kernels (``cuobjdump -sass`` of the built library),
-    and the float atomics in the segment sum's SASS; fails unless both
+    and the float atomics in the SASS of the segment sum (B1' and the
+    delta) and of the draw; fails unless both
     instantiations of each run on wgmma and the segment sum has no float
     atomic.  Returns the HGMMA counts."""
     log = _build.build_log_path().read_text().splitlines()
@@ -394,22 +414,23 @@ def kernel_report():
     float_atomics = 0
     for section in sass.split("Function : ")[1:]:
         name = _kernel_name(section.split("\n", 1)[0])
-        if name and not name.startswith(("seg_", "point_min", "delta_")):
+        if name and not name.startswith(("seg_", "point_min", "draw_")):
             counts[name] = section.count("HGMMA")
-        elif name and name.startswith(("seg_", "delta_")):
+        elif name and name.startswith(("seg_", "draw_")):
             float_atomics += sum(
                 1 for l in section.splitlines()
                 if ("ATOM" in l or "RED" in l) and "F32" in l)
-    print("SASS HGMMA instructions: %s; float atomics in the segment sum "
-          "and the delta: %d" % (", ".join("%s %d" % kv for kv in sorted(counts.items())),
-                  float_atomics), flush=True)
+    print("SASS HGMMA instructions: %s; float atomics in the segment sum, "
+          "the delta and the draw: %d"
+          % (", ".join("%s %d" % kv for kv in sorted(counts.items())),
+             float_atomics), flush=True)
     for name in ("assign_kernel<bf16>", "assign_kernel<float>",
                  "walk_kernel<bf16>", "walk_kernel<float>"):
         if not counts.get(name):
             raise AssertionError("%s does not run on wgmma" % name)
     if float_atomics:
-        raise AssertionError("the segment sum or the delta has float "
-                             "atomics")
+        raise AssertionError("the segment sum, the delta or the draw has "
+                             "float atomics")
     return counts
 
 
@@ -1317,8 +1338,9 @@ def time_point_min(tag, p, reps):
 
 def kmeanspp_picks(label, x, k, seed):
     """k-means++ on ``x`` twice in lockstep, from one set of draws: each
-    step's distances through the kernel and through its plain twin, each
-    path drawing from its own weights.  The picks must be equal; a pick may
+    step's distances and draw through the kernels (``point_min``,
+    ``weighted_draw``) and through their plain twins, each path drawing
+    from its own weights.  The picks must be equal; a pick may
     differ only between two adjacent valid rows, with the draw's uniform
     between the two paths' cumulative shares through the lower one (see
     :func:`flip_margin`; checked at the first differing step, whose step
@@ -1329,21 +1351,25 @@ def kmeanspp_picks(label, x, k, seed):
     p = prepare(x, k, L2, x.device, Logger(0))
     us = torch.rand(k, generator=I.generator(seed)).to(x.device)
     validf = p.valid.float()
-    first = I._weighted_draw(validf, us[0:1])
+    first = IK.weighted_draw(validf, p.valid, us[0:1])
+    if not torch.equal(first, IK.weighted_draw_reference(validf, p.valid,
+                                                         us[0:1])):
+        raise AssertionError("%s: the first draw is not the twin's" % label)
     picks = [int(first)]
     c = p.x[first[0]].float()
     ws = [IK.point_min(p.x, p.x_sq, p.valid, c, torch.empty_like(p.x_sq),
                        L2, first=True),
           IK.point_min_reference(p.x, p.x_sq, p.valid, c,
                                  torch.empty_like(p.x_sq), L2, first=True)]
+    draws = (IK.weighted_draw, IK.weighted_draw_reference)
     parted = None
     t = time.perf_counter()
     for i in range(1, k):
-        w = [torch.where(m.sum() > 0, m, validf) for m in ws]
-        got = [int(I._weighted_draw(wi, us[i:i + 1])) for wi in w]
+        got = [int(draw(wi, p.valid, us[i:i + 1]))
+               for draw, wi in zip(draws, ws)]
         if got[0] != got[1]:
             parted = i
-            flip_margin(label, i, w, float(us[i]), got, p.valid)
+            flip_margin(label, i, ws, float(us[i]), got, p.valid)
             break
         picks.append(got[0])
         if i + 1 < k:
@@ -1374,12 +1400,13 @@ def flip_margin(label, step, w, u, got, valid):
     rows ``got``: the draw is explained only when the two picks are
     adjacent valid rows and the uniform u lies between the two paths'
     fp64 cumulative shares through the lower pick, Q_kernel(lo) and
-    Q_twin(lo), widened by no more than the fp32 two-level draw's
-    rounding, (blocks + 24) 2**-24 of the total.  Prints the step, both
-    shares and u's distance outside them; fails otherwise."""
+    Q_twin(lo), widened by no more than the fp32 draw's rounding
+    (``init_kernels.draw_margin``: (R + 140) 2**-24 of the total, R the
+    chunk partials a group of the draw's tree holds).  Prints the step,
+    both shares and u's distance outside them; fails otherwise."""
     lo, hi = min(got), max(got)
     n = w[0].numel()
-    eps = (n // I._draw_block_size(n) + 24) * 2.0**-24
+    eps = IK.draw_margin(n)
     q = [float(wi[:lo + 1].double().sum() / wi.double().sum()) for wi in w]
     outside = max(min(q) - u, u - max(q), 0.0)
     between = int(valid[lo + 1:hi].sum())
@@ -1391,6 +1418,239 @@ def flip_margin(label, step, w, u, got, valid):
     if between or outside > eps:
         raise AssertionError("%s: picks part at step %d off the draw's "
                              "boundary" % (label, step))
+
+
+# ---------------------------------------------------------------------------
+# The k-means++ step's draw (weighted_draw) and the start's repeat
+
+def draw_weights(p, steps=4):
+    """A k-means++ state on the prepared problem ``p``: the running minimum
+    distances after ``steps`` steps from rows spread over x (those rows
+    weigh 0), with every 50th row also set to 0."""
+    n = p.x.shape[0]
+    w = torch.empty_like(p.x_sq)
+    for s in range(steps):
+        IK.point_min(p.x, p.x_sq, p.valid, p.x[s * n // steps].float(), w,
+                     D.DistanceMetric.L2, first=s == 0)
+    w[::50] = 0
+    return w
+
+
+def check_weighted_draw(tag, label, p, draws, reps):
+    """``kmt_weighted_draw`` against its twin on the prepared problem ``p``
+    (:func:`draw_weights`): at ``draws`` uniforms from a seed and the ends
+    of [0, 1), the index bitwise the twin's and of positive weight, the
+    copied row bitwise the drawn row of x as fp32, a repeat bitwise; at
+    all-zero weights (the fallback) bitwise the twin's and a valid row.
+    Then timed (:func:`time_weighted_draw`).  Returns the times and, as
+    ``max_abs_err``, the largest difference measured: between the
+    kernel's index and the twin's, a repeat's, the fallback twin's, and
+    between a copied row and the drawn row of x (anything but 0
+    raises)."""
+    n, f = p.x.shape
+    w = draw_weights(p)
+    us = torch.cat([torch.rand(draws, generator=I.generator(n)),
+                    torch.tensor([0.0, 1.0 - 2.0**-24])]).to(p.x.device)
+    out = torch.empty(f, device=p.x.device)
+    got, want, row_err = [], [], []
+    for i in range(us.numel()):
+        u = us[i:i + 1]
+        got.append(IK.weighted_draw(w, p.valid, u, row_source=p.x,
+                                    out_row=out))
+        want.append(IK.weighted_draw_reference(w, p.valid, u))
+        row_err.append((out - p.x[got[-1][0]].float()).abs().max())
+    got, want = torch.cat(got), torch.cat(want)
+    row_err = float(torch.stack(row_err).max())
+    again = torch.cat([IK.weighted_draw(w, p.valid, us[i:i + 1])
+                       for i in range(us.numel())])
+    zero = torch.zeros_like(w)
+    fall = torch.cat([IK.weighted_draw(zero, p.valid, us[i:i + 1])
+                      for i in range(8)])
+    fall_twin = torch.cat([IK.weighted_draw_reference(zero, p.valid,
+                                                      us[i:i + 1])
+                           for i in range(8)])
+    err = max(row_err, *(float((a - b).abs().max()) for a, b in (
+        (got, want), (got, again), (fall, fall_twin))))
+    if not (torch.equal(got, want) and torch.equal(got, again)):
+        raise AssertionError("weighted_draw %s: %d of %d indices differ from "
+                             "the twin's or the repeat" % (
+                                 label, int((got != want).sum()),
+                                 got.numel()))
+    if row_err != 0 or not bool((w[got] > 0).all()):
+        raise AssertionError("weighted_draw %s: a copied row differs from "
+                             "x's, or a zero-weight row was drawn" % label)
+    if not (torch.equal(fall, fall_twin) and bool(p.valid[fall].all())):
+        raise AssertionError("weighted_draw %s: the all-zero fallback is "
+                             "not the twin's valid row" % label)
+    print("check weighted_draw %s: ok; %d indices bitwise the twin's (and "
+          "a repeat), each of positive weight (%d rows of weight 0), every "
+          "copied row bitwise x's; all-zero weights: the twin's valid rows"
+          % (label, got.numel(), int((w == 0).sum())), flush=True)
+    return {**time_weighted_draw(tag, label, p, w, reps), "max_abs_err": err}
+
+
+def time_weighted_draw(tag, label, p, w, reps):
+    """The draw at one shape as the k-means++ loop runs it (one shard: the
+    row copied into a centroid row): kernel and twin in turns (plain,
+    kernel, kernel, plain), then ``torch.multinomial(w, 1)`` where n <=
+    2**24 (its limit; timed, never called by the port), beside the bound
+    from ``roofline.py``; and one profiled window, the device time of each
+    of the kernel's two launches.  Returns {ms, plain_ms, library_ms,
+    library, bound_ms, bound_by, launch_ms}."""
+    n, f = p.x.shape
+    u = torch.rand(1, generator=I.generator(3)).to(p.x.device)
+    out = torch.empty(f, device=p.x.device)
+    kern = lambda: IK.weighted_draw(w, p.valid, u, row_source=p.x,
+                                    out_row=out)
+    plain = lambda: IK.weighted_draw_reference(w, p.valid, u)
+    p1 = time_ms(plain, reps)
+    k1 = time_ms(kern, reps)
+    k2 = time_ms(kern, reps)
+    p2 = time_ms(plain, reps)
+    lib_ms = (time_ms(lambda: torch.multinomial(w, 1), reps)
+              if n <= 2**24 else None)
+    name_dt = str(p.x.dtype)[6:]
+    bnd = R.draw_bound(n, f, name_dt)
+    launch_ms = device_ms(kern, reps)
+    out_t = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+             "library_ms": lib_ms,
+             "library": "torch.multinomial(w, 1)" if lib_ms else None,
+             "bound_ms": bnd["ms"], "bound_by": bnd["by"],
+             "launch_ms": launch_ms}
+    print("%s time weighted_draw %s: kernel %.4f ms (%.4f/%.4f; device: %s), "
+          "plain %.4f ms (%.4f/%.4f), library %s, bound %.4f ms (%s; %.4g "
+          "bytes)" % (tag, label, out_t["ms"], k1, k2, ", ".join(
+              "%s %.4f" % kv for kv in launch_ms.items()), out_t["plain_ms"],
+              p1, p2, "%.4f ms (torch.multinomial(w, 1))" % lib_ms
+              if lib_ms else "none (n > 2**24)", bnd["ms"], bnd["by"],
+              bnd["bytes"]), flush=True)
+    return out_t
+
+
+def kernel_name(name: str) -> str:
+    """A profiler event's short name: the kernel's own name (and its
+    template argument), or the copy or set as the profiler names it."""
+    m = re.search(r"(\w+_kernel)(<[\w:]+>)?", name)
+    return "".join(m.groups("")) if m else name.split(" (")[0]
+
+
+def device_ms(fn, reps):
+    """{kernel name: device ms a call} of ``fn`` over one profiled window
+    of ``reps`` calls (kernel intervals from ``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = kernel_name(e.name)
+            out[name] = out.get(name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3 / reps
+    return out
+
+
+def kmeanspp_launches(tag, x, k, seed=1):
+    """k-means++ (``init_centroids``) on the headline samples: walls (min
+    of 3, after a warm call) and one profiled call, its device kernels,
+    copies and sets by name, per step.  Fails unless a step is three
+    launches (``point_min`` and the draw's two) and nothing is copied
+    from the card.  Returns (the wall, kernels a step)."""
+    from torch.profiler import ProfilerActivity, profile
+    p = prepare(x, k, D.DistanceMetric.L2, x.device, Logger(0))
+    fn = lambda: I.init_centroids(p, I.InitMethod.PLUS_PLUS, seed)
+    fn()
+    walls = [wall_s(fn) for _ in range(3)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kinds = {"kernel": 0, "Memcpy DtoH": 0, "Memcpy": 0, "Memset": 0}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        kind = ("Memcpy DtoH" if e.name.startswith("Memcpy DtoH") else
+                "Memcpy" if e.name.startswith("Memcpy") else
+                "Memset" if e.name.startswith("Memset") else "kernel")
+        kinds[kind] += 1
+    per_step = kinds["kernel"] / (k - 1)
+    print("%s k-means++ %dx%d %s k=%d: %.4f s (min of 3: %s); one call "
+          "traced: %d kernels (%.3f a step), %d copies to the host, %d other "
+          "copies, %d sets" % (tag, x.shape[0], x.shape[1], str(x.dtype)[6:],
+                               k, min(walls), ", ".join("%.4f" % v
+                                                        for v in walls),
+                               kinds["kernel"], per_step,
+                               kinds["Memcpy DtoH"], kinds["Memcpy"],
+                               kinds["Memset"]), flush=True)
+    if kinds["kernel"] > 3 * k + 8 or kinds["Memcpy DtoH"]:
+        raise AssertionError("k-means++: %s, not three launches a step and "
+                             "no read" % kinds)
+    del p
+    return min(walls), per_step
+
+
+#: the repeat gate's second process prints its digest after this
+START_TAG = "8M start: "
+
+
+def start_digest(x=None, busy=False):
+    """bench.py's 8M config's k-means++ start (8,000,000 x 256 bf16,
+    k=1024, seed 17: ``init_centroids`` on a prepared problem of its
+    samples, made here when ``x`` is None); with ``busy``, while a second
+    stream runs B2 at that shape.  Returns the centroids' sha256."""
+    x = B.uniform_bf16_rows("cuda") if x is None else x
+    k, L2 = BENCH_8M["k"], D.DistanceMetric.L2
+    p = prepare(x, k, L2, x.device, Logger(0))
+    if busy:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        c = p.x[:k].float()
+        with torch.cuda.stream(side):
+            for _ in range(60):
+                K.assign_only_pass(p.x, p.valid, p.assign0, c, n_clusters=k,
+                                   metric=L2)
+    cent = I.init_centroids(p, I.InitMethod.PLUS_PLUS, 17)
+    torch.cuda.synchronize()
+    digest = hashlib.sha256(cent.cpu().numpy().tobytes()).hexdigest()
+    del p, cent
+    return digest
+
+
+def start_child():
+    """The gate's second process: one start on freshly made samples."""
+    print(START_TAG + start_digest(), flush=True)
+
+
+def start_repeat_gate(tag, starts, x):
+    """The start's repeat gate: bench.py's 8M start bitwise equal across
+    ``starts``
+    (this process's, before and after ``check_delta_sum``), one more with
+    a second stream busy on B2 and one from a second process.  Prints the
+    digests; fails unless they are one."""
+    starts = dict(starts)
+    starts["second stream busy on B2"] = start_digest(x, busy=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke as S; S.start_child()"],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    line = [l for l in proc.stdout.splitlines() if l.startswith(START_TAG)]
+    if proc.returncode != 0 or not line:
+        print(proc.stdout + proc.stderr, flush=True)
+        raise AssertionError("start repeat gate: the second process "
+                             "exited %d" % proc.returncode)
+    starts["second process"] = line[-1][len(START_TAG):]
+    print("%s start repeat gate, bench.py 8M k-means++ start (seed 17): "
+          "%s" % (tag, "; ".join("%s %s" % (cond, d[:16])
+                                 for cond, d in starts.items())), flush=True)
+    if len(set(starts.values())) != 1:
+        raise AssertionError("start repeat gate: the 8M start does not "
+                             "repeat: %s" % starts)
 
 
 # ---------------------------------------------------------------------------
@@ -1577,7 +1837,15 @@ def main() -> int:
     errs = {"fused_lloyd_pass": 0.0, "assign_only_pass": 0.0,
             "point_min": check_point_min()}
     check_kernels(errs)
+    # bench.py's 8M start before and after the delta check (the gate
+    # adds a busy stream and a second process in the scale phase)
+    starts = {"fresh": start_digest()}
+    gc.collect()
+    torch.cuda.empty_cache()
     errs["delta_sum"], delta_times = check_delta_sum(tag)
+    starts["after check_delta_sum"] = start_digest()
+    gc.collect()
+    torch.cuda.empty_cache()
     score_ulps()
     times = time_kernels(tag, HEADLINE, torch.float32, 20)
     times_bf16 = time_kernels(tag, BF16_RUN, torch.bfloat16, 5)
@@ -1588,13 +1856,16 @@ def main() -> int:
     xb = torch.rand(BF16_RUN["n"], BF16_RUN["f"], generator=g,
                     device=dev).to(torch.bfloat16)
     k = HEADLINE["k"]
-    step_times = {}
+    step_times, draw_times = {}, {}
     for name, data in (("headline", x), ("bf16_1m", xb)):
         check_row_sq_norms(data)
         p = prepare(data, k, D.DistanceMetric.L2, dev, Logger(0))
         step_times[name] = time_point_min(tag, p, 20)
+        draw_times[name] = check_weighted_draw(
+            tag, "%dx%d %s" % (*data.shape, str(p.x.dtype)[6:]), p, 256, 20)
         del p
     kmeanspp_picks("headline 100000x256 fp32 k=1024", x, k, 1)
+    pp_wall, pp_per_step = kmeanspp_launches(tag, x, k)
     headline = dict(init="random", seed=1, tolerance=0.002, yinyang_t=0,
                     max_iterations=15)
     runs = [
@@ -1695,14 +1966,14 @@ def main() -> int:
     knn["launches"] += md_counts["knn_walk"]
     del x
 
-    scale = scale_phase(tag, errs)
+    scale = scale_phase(tag, errs, starts)
     for name in total:
         total[name] += scale["launches"][name]
     knn["launches"] += scale["launches"]["knn_walk"]
     knn["max_abs_err"] = max(knn["max_abs_err"], scale["walk_err"])
     knn["k16384"] = {**scale["walk"], "library_ms": None}
 
-    bench = bench_phase(tag)
+    bench = bench_phase(tag, scale["metrics"]["kmeans_8mx256_iterations"])
     for name in total:
         total[name] += bench[name]
     knn["launches"] += bench["knn_walk"]
@@ -1718,6 +1989,9 @@ def main() -> int:
         return {key: t[key] for key in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms",
                                         "sums_vs_fp64") if key in t}
+
+    def draw_numbers(t):
+        return {**numbers(t), "max_abs_err": t["max_abs_err"]}
 
     def shapes(name):
         return {"bf16_1m": numbers(times_bf16[name]),
@@ -1758,6 +2032,24 @@ def main() -> int:
         "shape": "100000x256 fp32",
         "bf16_1m": numbers(step_times["bf16_1m"]),
         **{key: numbers(t) for key, t in scale["point_min"].items()}})
+    # the init step's draw: XLA work in the JAX package
+    # (initialization.py:87 _weighted_draw), a kernel so that a start
+    # repeats on the card
+    kernels.append({
+        "name": "weighted_draw", "route": "cuda",
+        "source": "kmcuda_torch/csrc/draw.cu",
+        "replaces": "kmcuda_tpu/models/initialization.py:87",
+        "launches": total["weighted_draw"],
+        **numbers(draw_times["headline"]),
+        "max_abs_err": max(t["max_abs_err"] for t in (
+            *draw_times.values(), *scale["weighted_draw"].values())),
+        "library": draw_times["headline"]["library"],
+        "shape": "100000 weights, rows 100000x256 fp32",
+        "launch_ms": draw_times["headline"]["launch_ms"],
+        "kmeanspp_headline": {"s": pp_wall, "kernels_per_step": pp_per_step},
+        "bf16_1m": draw_numbers(draw_times["bf16_1m"]),
+        **{key: draw_numbers(t)
+           for key, t in scale["weighted_draw"].items()}})
     # the sparse iteration's delta: XLA work in the JAX package
     # (compact.py:109 delta_compacted, its one-hot chunk product at :86), a
     # kernel because the card's profile asked for one
@@ -2964,7 +3256,7 @@ def overflow_run(tag):
         x, k, init="k-means++", seed=3, tolerance=0.142, yinyang_t=0,
         verbosity=1, donate_samples=True))
     print(log, end="", flush=True)
-    require_launched("overflow run", launches, ("point_min",
+    require_launched("overflow run", launches, ("point_min", "weighted_draw",
                                                 "fused_lloyd_pass"))
     if c.shape != (k, f) or a.shape != (n,) or not bool(
             torch.isfinite(c).all()):
@@ -2983,13 +3275,16 @@ def overflow_run(tag):
     return launches
 
 
-def bench_8m_run(tag):
+def bench_8m_run(tag, starts):
     """bench.py:383-439 on the card: one warm run, one timed run and one
     timed run of one iteration, with bench.py's five metrics; k-means++
     alone on the same data, its step's distance pass timed
-    (:func:`time_point_min`) and draw; the argmin on a row sample; the peak
-    at most 1.5x the samples; then :func:`numpy_fp16_prepare`.  Returns the
-    timed run's launch counts, the metrics and the step's times."""
+    (:func:`time_point_min`) and its draw held and timed
+    (:func:`check_weighted_draw`); the repeat gate
+    (:func:`start_repeat_gate`, with the digests ``starts``); the argmin on
+    a row sample; the peak at most 1.5x the samples; then
+    :func:`numpy_fp16_prepare`.  Returns the timed run's launch counts,
+    the metrics and the step's and the draw's times."""
     n, f, k = BENCH_8M["n"], BENCH_8M["f"], BENCH_8M["k"]
     x = B.uniform_bf16_rows("cuda")
     kw = dict(init="k-means++", seed=17, tolerance=0.01, yinyang_t=0,
@@ -3002,7 +3297,8 @@ def bench_8m_run(tag):
     run()
     (c, a), log, s8m, launches, peak = run()
     print(log, end="", flush=True)
-    require_launched("8M run", launches, ("point_min", "fused_lloyd_pass",
+    require_launched("8M run", launches, ("point_min", "weighted_draw",
+                                          "fused_lloyd_pass",
                                           "assign_only_pass", "delta_sum"))
     iters = count_iterations(log)
     s_init = run(cap=1)[2]
@@ -3013,10 +3309,10 @@ def bench_8m_run(tag):
     # weighted draw
     p = prepare(x, k, D.DistanceMetric.L2, x.device, Logger(0))
     step = time_point_min(tag, p, 5)
-    u = torch.rand(1, device="cuda")
-    draw_ms = time_ms(lambda: I._weighted_draw(p.x_sq, u), 5)
+    draw = check_weighted_draw(tag, "%dx%d bf16" % (n, f), p, 128, 5)
     del p, c_pp
     kmeanspp_picks("8M %dx%d bf16 k=%d" % (n, f, k), x, k, 17)
+    start_repeat_gate(tag, starts, x)
     if peak > 1.5 * x.nbytes:
         raise AssertionError("8M run: peak %s above 1.5x the samples (%s)"
                              % (gb(peak), gb(x.nbytes)))
@@ -3040,11 +3336,12 @@ def bench_8m_run(tag):
           "argmin, restarted from the returned centroids, on %d sampled "
           "rows (%d empty clusters, %d near-tie rows differ)"
           % (tag, n, f, k, s8m, iters, gb(peak), peak / x.nbytes, launches,
-             pp_s, 1e3 * pp_s / (k - 1), step["ms"], draw_ms, rows.numel(),
-             empty, ties), flush=True)
+             pp_s, 1e3 * pp_s / (k - 1), step["ms"], draw["ms"],
+             rows.numel(), empty, ties), flush=True)
     numpy_fp16_prepare(tag, x)
     del x, c, a
-    return launches, {name: v for name, (v, _u) in metrics.items()}, step
+    return (launches, {name: v for name, (v, _u) in metrics.items()}, step,
+            draw)
 
 
 def numpy_fp16_prepare(tag, x):
@@ -3124,9 +3421,10 @@ def capacity_run(tag):
     samples) through its call (k-means++ seed 17, tolerance 0.01, 5
     iterations at most, Lloyd): wall, iterations, k-means++ seconds and ms per step (the
     init timed inside the call), peak memory, launches; the argmin on a
-    row sample; k-means++'s step timed at this shape.  Fails unless the
-    init step and B1 ran and the peak is at most 1.5x the samples.
-    Returns the launch counts and the step's times."""
+    row sample; k-means++'s step and its draw timed (the draw held
+    against its twin) at this shape.  Fails unless the init step, the draw
+    and B1 ran and the peak is at most 1.5x the samples.  Returns the
+    launch counts and the step's and the draw's times."""
     n, f, k = CAP.N, CAP.F, CAP.K
     x = CAP.samples()
     spans = []
@@ -3147,7 +3445,7 @@ def capacity_run(tag):
     finally:
         I.init_centroids = init
     print(log, end="", flush=True)
-    require_launched("capacity run", launches, ("point_min",
+    require_launched("capacity run", launches, ("point_min", "weighted_draw",
                                                 "fused_lloyd_pass"))
     if peak > 1.5 * x.nbytes:
         raise AssertionError("capacity run: peak %s above 1.5x the samples "
@@ -3157,6 +3455,7 @@ def capacity_run(tag):
     del c, a
     p = prepare(x, k, D.DistanceMetric.L2, x.device, Logger(0))
     step = time_point_min(tag, p, 3)
+    draw = check_weighted_draw(tag, "%dx%d bf16" % (n, f), p, 64, 3)
     del p
     print("%s scale: capacity run %dx%d bf16 k=%d (%s of samples; k-means++ "
           "seed 17, tolerance 0.01, 5 iterations at most): wall %.4f s, %d "
@@ -3168,7 +3467,7 @@ def capacity_run(tag):
              spans[0], 1e3 * spans[0] / (k - 1), gb(peak), peak / x.nbytes,
              launches, rows.numel(), empty, ties), flush=True)
     del x
-    return launches, step
+    return launches, step, draw
 
 
 def knn_large_k_run(tag):
@@ -3261,7 +3560,7 @@ def yinyang_large_k_run(tag):
     return out
 
 
-def scale_phase(tag, errs):
+def scale_phase(tag, errs, starts):
     """The JAX package's scale tier, each run's data made on the card from
     a seed and deleted before the next: the reference's overflow run, the
     kernels timed and held at its shape, bench.py's 8M config, the kernels
@@ -3269,7 +3568,9 @@ def scale_phase(tag, errs):
     elements, the 40M x 256 bf16 capacity run, kNN at k=16,384 and Yinyang
     at k=2048.  Returns the phase's launch counts, the kernel times at the
     two shapes, B1's sums against fp64 past 2**31, B3's numbers and the
-    init step's times at 8M and 40M."""
+    init step's and the draw's times at 8M and 40M.  ``starts``: the 8M
+    start's digests so far, which :func:`bench_8m_run` completes and
+    holds (:func:`start_repeat_gate`)."""
     counts = {name: 0 for name in _launches()}
 
     def add(launches):
@@ -3279,12 +3580,12 @@ def scale_phase(tag, errs):
     t = time.perf_counter()
     add(overflow_run(tag))
     times_167m = time_kernels(tag, OVERFLOW, torch.float32, 2, errs)
-    launches, metrics, step_8m = bench_8m_run(tag)
+    launches, metrics, step_8m, draw_8m = bench_8m_run(tag, starts)
     add(launches)
     times_8m = time_kernels(tag, BENCH_8M, torch.bfloat16, 2, errs)
     launches, held_9m = past_2_31_run(tag, errs)
     add(launches)
-    launches, step_40m = capacity_run(tag)
+    launches, step_40m, draw_40m = capacity_run(tag)
     add(launches)
     walk_launches, walk_err, walk_times = knn_large_k_run(tag)
     counts["knn_walk"] += walk_launches
@@ -3297,7 +3598,9 @@ def scale_phase(tag, errs):
             "times_8m": times_8m, "held_9m": held_9m, "metrics": metrics,
             "walk_err": walk_err, "walk": walk_times,
             "point_min": {"scale_8m_bf16": step_8m,
-                          "capacity_40m_bf16": step_40m}}
+                          "capacity_40m_bf16": step_40m},
+            "weighted_draw": {"scale_8m_bf16": draw_8m,
+                              "capacity_40m_bf16": draw_40m}}
 
 
 # ---------------------------------------------------------------------------
@@ -3309,14 +3612,15 @@ BENCH_TIMEOUT = 480
 BENCH_FINAL_KEYS = {"metric", "value", "unit", "vs_baseline", "extra"}
 
 
-def bench_phase(tag):
+def bench_phase(tag, iterations_8m):
     """``python3 bench_torch.py`` at full size in a process of its own,
     with this process's cached card memory returned first; echoes its
     lines.  Fails unless it exits 0 and its final line has bench.py's five
     keys and headline, all 18 metrics in ``extra`` and no ``failed``,
-    tie-aware recall@16 1.0, every wall positive, at least one iteration
-    at 8M, and every kernel launched.  Returns the bench's launch counts
-    (its own ``kernel launches`` line)."""
+    tie-aware recall@16 1.0, every wall positive, the 8M run's iteration
+    count ``iterations_8m`` (this process's), and every kernel launched.
+    Returns the bench's launch counts (its own ``kernel launches``
+    line)."""
     gc.collect()
     torch.cuda.empty_cache()
     env = {key: val for key, val in os.environ.items()
@@ -3357,8 +3661,11 @@ def bench_phase(tag):
     if not all(v > 0 for v in walls.values()):
         raise AssertionError("bench_torch.py: a wall is not positive: %s"
                              % walls)
-    if extra["kmeans_8mx256_iterations"]["value"] < 1:
-        raise AssertionError("bench_torch.py: no 8M iteration")
+    if extra["kmeans_8mx256_iterations"]["value"] != iterations_8m:
+        raise AssertionError("bench_torch.py: %s 8M iterations, this process "
+                             "%d (the start repeats across processes)"
+                             % (extra["kmeans_8mx256_iterations"]["value"],
+                                iterations_8m))
     launches = json.loads([l for l in lines if l.startswith(
         "kernel launches ")][-1][len("kernel launches "):])
     require_launched("bench_torch.py", launches, launches)

@@ -10,7 +10,11 @@ line.  Over several row shards the distances are computed on their
 shards and each draw reads them on the leader, so the draws are those of
 one device whenever the shards' distances are.  Each step's distances go
 through ``ops.init_kernels.point_min``, one kernel launch per shard on
-the card.
+the card.  The draw is ``ops.init_kernels.weighted_draw``
+(``kmt_weighted_draw`` on a card: two launches in a summation order fixed
+by n, so a start repeats bitwise; with one shard it also copies the drawn
+row into the centroids), and a k-means++ step is three launches; on the
+CPU it is the kernel's plain twin, in the same order.
 
 - random: k distinct *valid* rows, uniformly.
 - k-means++: each step draws a row with probability proportional to its
@@ -81,18 +85,6 @@ def _random(problem, gen) -> torch.Tensor:
     return p.take(p.xs, rows[pick]).float()
 
 
-def _draw_block_size(n: int) -> int:
-    """Inner-block length of the two-level weighted draw: the largest
-    power of two <= 4096 dividing n into at least two blocks (1 = one
-    level)."""
-    cand = 4096
-    while cand >= 2:
-        if n % cand == 0 and n // cand >= 2:
-            return cand
-        cand //= 2
-    return 1
-
-
 def _inverse_cdf(cum, t):
     """First index whose cumulative weight exceeds ``t``.  ``t`` is held
     below the total, so a row of weight 0 is never drawn while any weight
@@ -100,28 +92,6 @@ def _inverse_cdf(cum, t):
     t = torch.minimum(t, torch.nextafter(cum[-1:], torch.zeros_like(t)))
     return torch.clamp(torch.searchsorted(cum, t, right=True),
                        max=cum.shape[0] - 1)
-
-
-def _weighted_draw(weights, u):
-    """Index ~ Categorical(weights) by a two-level inverse CDF: block sums
-    -> a short cumsum picks the block -> one block's cumsum picks the row,
-    so a step scans n weights once instead of a full prefix sum.
-
-    ``u`` is a (1,) uniform on the weights' device; returns a (1,) int64
-    index on that device, with no host sync."""
-    n = weights.shape[0]
-    bs = _draw_block_size(n)
-    if bs == 1:
-        cum = torch.cumsum(weights, 0)
-        return _inverse_cdf(cum, u * cum[-1:])
-    blocks = weights.view(n // bs, bs)
-    cumb = torch.cumsum(blocks.sum(1), 0)
-    t = u * cumb[-1:]
-    j = _inverse_cdf(cumb, t)
-    before = torch.where(j > 0, cumb[torch.clamp(j - 1, min=0)],
-                         torch.zeros_like(t))
-    cumr = torch.cumsum(blocks.index_select(0, j)[0], 0)
-    return j * bs + _inverse_cdf(cumr, t - before)
 
 
 def _progress(problem, label: str, done: int, k: int) -> None:
@@ -143,6 +113,20 @@ def _row(problem, idx) -> torch.Tensor:
     return problem.take(problem.xs, idx).float()
 
 
+def _draw_row(problem, weights, valid, u, out) -> None:
+    """Draws a row ~ ``weights`` (over the valid rows when no weight is
+    positive: every valid row already chosen, fewer distinct rows than k)
+    at the uniform ``u`` (1,) and copies it, as fp32, into ``out`` (1, F),
+    with no host sync, through ``weighted_draw``, which copies the row
+    itself when one shard holds every row."""
+    p = problem
+    if len(p.xs) == 1:
+        IK.weighted_draw(weights, valid, u, row_source=p.xs[0],
+                         out_row=out[0])
+        return
+    out.copy_(_row(p, IK.weighted_draw(weights, valid, u)))
+
+
 def _init_plus_plus(problem, gen) -> torch.Tensor:
     """k-means++ over the problem's valid rows; (k, F) fp32 on the
     leader.  Each shard keeps its running minimum distance; the draw runs
@@ -152,9 +136,9 @@ def _init_plus_plus(problem, gen) -> torch.Tensor:
     p = problem
     k = p.k
     us = torch.rand(k, generator=gen).to(p.device)
-    validf = p.topo.gather(p.valids).float()
+    valid = p.topo.gather(p.valids)
     cent = torch.empty((k, p.features), dtype=torch.float32, device=p.device)
-    cent[0:1] = _row(p, _weighted_draw(validf, us[0:1]))
+    _draw_row(p, valid.float(), valid, us[0:1], cent[0:1])
     weights = torch.empty(p.n, dtype=torch.float32, device=p.device)
     mindists = []
     for s, c in zip(p.shards, p.topo.broadcast(cent[0])):
@@ -167,10 +151,7 @@ def _init_plus_plus(problem, gen) -> torch.Tensor:
             own.copy_(m)
         mindists.append((own, m))
     for i in range(1, k):
-        # every valid row already chosen (fewer distinct rows than k): draw
-        # among the valid rows instead of the all-zero weights
-        w = torch.where(weights.sum() > 0, weights, validf)
-        cent[i:i + 1] = _row(p, _weighted_draw(w, us[i:i + 1]))
+        _draw_row(p, weights, valid, us[i:i + 1], cent[i:i + 1])
         if i + 1 < k:
             for s, (own, m), c in zip(p.shards, mindists,
                                       p.topo.broadcast(cent[i])):
@@ -218,10 +199,11 @@ def _init_afkmc2(problem, m: int, gen) -> torch.Tensor:
     leader over the gathered ones; each step gathers its m candidates."""
     p = problem
     k = p.k
-    validf = p.topo.gather(p.valids).float()
+    valid = p.topo.gather(p.valids)
+    validf = valid.float()
     cent = torch.zeros((k, p.features), dtype=torch.float32, device=p.device)
-    cent[0:1] = _row(p, _weighted_draw(
-        validf, torch.rand(1, generator=gen).to(p.device)))
+    _draw_row(p, validf, valid, torch.rand(1, generator=gen).to(p.device),
+              cent[0:1])
     d0 = p.topo.gather([
         IK.point_min(x, xsq, v, c, torch.empty_like(xsq), p.metric,
                      first=True)

@@ -35,6 +35,7 @@ _SIGNATURES = {
     "kmt_delta_sum": [_P] * 8 + [_I] * 10 + [_P],
     "kmt_knn_walk": [_P] * 17 + [_I] * 12 + [_P],
     "kmt_point_min": [_P] * 5 + [_I] * 5 + [_P],
+    "kmt_weighted_draw": [_P] * 7 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

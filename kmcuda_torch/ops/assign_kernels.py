@@ -6,8 +6,8 @@
 - :func:`assign_only_pass` (B2) — the same without the segment sum;
   replaces ``_kernel_assign_only``.
 - :func:`delta_sum` — the centroid delta of a sparse iteration's moved
-  rows (``csrc/segment.cu:kmt_delta_sum``, the segment sum run over the
-  row list); replaces the JAX package's ``compact.delta_compacted``, XLA
+  rows (``csrc/segment.cu:kmt_delta_sum``, the segment sum run once over
+  the list's 2 m signed entries); replaces the JAX package's ``compact.delta_compacted``, XLA
   work on the TPU, whose port :func:`compact.delta_compacted` is its
   plain twin.
 
@@ -43,6 +43,10 @@ SEGMENT_THREADS = 256
 #: chunks, of at least SEGMENT_MIN_CHUNK rows
 SEGMENT_MAX_CHUNKS = 4096
 SEGMENT_MIN_CHUNK = 64
+#: the count table may hold this many entries whatever the entries
+SEGMENT_TABLE = 1 << 21
+#: table entries one block of the table's scan takes (``csrc/segment.cu``)
+SEGMENT_SCAN_TILE = 4096
 
 
 def reset_launch_counts() -> None:
@@ -83,14 +87,15 @@ def _check_args(x, valid, prev_assign, centroids, k: int) -> None:
 
 
 class SegmentPlan(typing.NamedTuple):
-    """The cut of ``kmt_segment_sum`` at one shape: what the kernel takes,
-    and the scratch it needs (the kernel refuses scratch shorter than its
-    own count)."""
+    """The cut of ``kmt_segment_sum`` / ``kmt_delta_sum`` at one shape: what
+    the kernel takes, and the scratch it needs (the kernel refuses scratch
+    shorter than its own count)."""
 
-    rows: int           # rows per placement block, >= k, a multiple of 256
+    rows: int           # entries per placement block, a multiple of 256
     chunk: int          # sorted positions per reduction chunk
     tx: int             # threads across a row's features (divides 256)
-    int_scratch: int    # int32: table, starts, permutation, sorted ids
+    int_scratch: int    # int32: table and its total, tile sums, permutation,
+                        # sorted ids
     float_scratch: int  # fp32: two partial rows per chunk
 
 
@@ -98,20 +103,32 @@ def _pow2_at_least(v: int) -> int:
     return 1 << max(0, int(v) - 1).bit_length()
 
 
-def segment_plan(n: int, f: int, k: int, itemsize: int) -> SegmentPlan:
-    """The segment sum's cut for x (n, f) of ``itemsize`` bytes and k
-    clusters: a pure function of the shape, so the summation order (hence
-    the sums) repeats bitwise.  Placement blocks hold at least k rows, so
-    the (k, blocks) table stays within n + k entries; reduction chunks hold
-    at least SEGMENT_MIN_CHUNK rows and there are at most
-    SEGMENT_MAX_CHUNKS, so the partials stay within 2 * 4096 * f floats."""
-    rows = 256 * -(-max(1024, k) // 256)
+def segment_plan(n: int, f: int, k: int, itemsize: int,
+                 sides: int = 1) -> SegmentPlan:
+    """The segment sum's cut for ``sides`` runs of n entries (1: B1' over
+    the n rows of x (n, f); 2: the delta's two sides of n moved rows) of
+    ``itemsize`` bytes and k clusters: a pure function of the shape, so the
+    summation order (hence the sums) repeats bitwise.  Reduction chunks
+    hold at least SEGMENT_MIN_CHUNK positions and there are at most
+    SEGMENT_MAX_CHUNKS, so the partials stay within 2 * 4096 * f floats;
+    the placement cuts each side into blocks of ``rows`` >= 1024 entries,
+    as many as keep the (k, blocks) count table within max(entries,
+    SEGMENT_TABLE) entries (plus a block a side per cluster): at least k
+    entries a block where the entries pass SEGMENT_TABLE, as B1' always
+    had, and more blocks when they are few beside k.  The blocks move no
+    position, so the sums do not depend on ``rows``."""
+    entries = sides * n
+    cap = max(entries, SEGMENT_TABLE)
+    rows = 256 * -(-max(1024, -(-k * entries // cap)) // 256)
+    table = k * sides * -(-n // rows)
     chunk = max(SEGMENT_MIN_CHUNK,
-                _pow2_at_least(-(-n // SEGMENT_MAX_CHUNKS)))
+                _pow2_at_least(-(-entries // SEGMENT_MAX_CHUNKS)))
     tx = min(SEGMENT_THREADS,
              max(32, _pow2_at_least(-(-f // (16 // itemsize)))))
-    return SegmentPlan(rows, chunk, tx, -(-n // rows) * k + k + 1 + 2 * n,
-                       2 * -(-n // chunk) * f)
+    return SegmentPlan(rows, chunk, tx,
+                       table + 1 + -(-table // SEGMENT_SCAN_TILE)
+                       + 2 * entries,
+                       2 * -(-entries // chunk) * f)
 
 
 def tf32_round(v: torch.Tensor) -> torch.Tensor:
@@ -242,6 +259,10 @@ def _check_delta_args(x, rows, assign_new, assign_old, k: int) -> None:
                     ("assign_old", assign_old)):
         if not t.is_contiguous():
             raise KMTPUInvalidArguments("%s must be contiguous" % name)
+    if 2 * rows.numel() > 2**31 - 1:
+        raise KMTPUInvalidArguments(
+            "rows: the delta's 2 m entries are int32 positions, got m=%d"
+            % rows.numel())
     if rows.numel() == 0:
         return
     # the list's order and range and the listed ids' range, one device read
@@ -291,18 +312,18 @@ def launch_delta_sum(lib, x, rows, assign_new, assign_old, k, stream):
     checks; counts no launch of its own."""
     n, f = x.shape
     m = rows.numel()
-    plan = segment_plan(m, f, k, x.element_size())
+    plan = segment_plan(m, f, k, x.element_size(), sides=2)
     d_sums = torch.empty((k, f), dtype=torch.float32, device=x.device)
     d_counts = torch.empty((k,), dtype=torch.int32, device=x.device)
-    iscratch = torch.empty((2 * m + k + plan.int_scratch,),
-                           dtype=torch.int32, device=x.device)
-    fscratch = torch.empty((k * f + plan.float_scratch,),
-                           dtype=torch.float32, device=x.device)
+    iscratch = torch.empty((plan.int_scratch,), dtype=torch.int32,
+                           device=x.device)
+    fscratch = torch.empty((plan.float_scratch,), dtype=torch.float32,
+                           device=x.device)
     code = lib.kmt_delta_sum(
         x.data_ptr(), rows.data_ptr(), assign_new.data_ptr(),
         assign_old.data_ptr(), iscratch.data_ptr(), fscratch.data_ptr(),
         d_sums.data_ptr(), d_counts.data_ptr(), n, m, f, k, plan.rows,
-        plan.chunk, plan.tx, iscratch.numel(), fscratch.numel(),
+        plan.chunk, plan.tx, plan.int_scratch, plan.float_scratch,
         int(x.dtype == torch.bfloat16), stream)
     _build.check(lib, code, "kmt_delta_sum")
     return d_sums, d_counts

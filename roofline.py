@@ -103,3 +103,14 @@ def delta_sum_bound(m: int, f: int, k: int, dtype_name: str) -> dict:
     each moved row once a side, twice the rows' bytes here."""
     nbytes = m * f * _size(dtype_name) + 12 * m + 4 * k * f + 4 * k
     return bound(nbytes, {"fp32": 2.0 * m * f})
+
+
+def draw_bound(n: int, f: int, dtype_name: str) -> dict:
+    """The k-means++ step's weighted draw (``kmt_weighted_draw``) over n
+    fp32 weights: one read of the weights and of the fp32 uniform, one
+    write of the int64 index, and a row of f features stored as
+    ``dtype_name``, its read and its fp32 write; n fp32 adds.  The bool
+    valid rows are read only on the all-zero fallback (no weight
+    positive), which the bound does not count."""
+    nbytes = 4 * n + 4 + 8 + f * (_size(dtype_name) + 4)
+    return bound(nbytes, {"fp32": float(n)})

@@ -178,22 +178,29 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     (2**31 - 1, 256, 1024, 2), (2**31 - 1, 3, 2**20, 4)])
 def test_segment_plan_covers_rows_and_bounds_scratch(n, f, k, itemsize):
     """The segment sum's cut: placement blocks and reduction chunks cover
-    [0, n) exactly, the blocks hold at least k rows, so the (k, blocks)
-    table stays within n + k entries and all integer scratch within
-    3 n + 2 k + 1; the partials within 2 * SEGMENT_MAX_CHUNKS * f floats;
-    the block shape divides 256 threads and the grid fits CUDA's limits;
-    and the cut depends on the shape alone."""
+    [0, n) exactly, the blocks hold at least 1024 rows, and at least k
+    where n passes SEGMENT_TABLE, so the (k, blocks) table stays within
+    max(n, SEGMENT_TABLE) + k entries and the integer scratch is the
+    table, its total, its scan's tile sums and 2 n; the partials within
+    2 * SEGMENT_MAX_CHUNKS * f floats; the block shape divides 256
+    threads and the grid fits CUDA's limits; and the cut depends on the
+    shape alone."""
     p = K.segment_plan(n, f, k, itemsize)
     assert p == K.segment_plan(n, f, k, itemsize)
     blocks, chunks = -(-n // p.rows), -(-n // p.chunk)
-    assert p.rows >= k and p.rows % 256 == 0
+    assert p.rows >= 1024 and p.rows % 256 == 0
+    assert p.rows >= k or n < K.SEGMENT_TABLE
     assert (blocks - 1) * p.rows < n <= blocks * p.rows
     assert (chunks - 1) * p.chunk < n <= chunks * p.chunk
     assert p.chunk >= K.SEGMENT_MIN_CHUNK
     assert chunks <= K.SEGMENT_MAX_CHUNKS
-    assert blocks * k <= n + k
-    assert p.int_scratch == blocks * k + k + 1 + 2 * n
-    assert p.int_scratch <= 3 * n + 2 * k + 1
+    table = blocks * k
+    assert table <= max(n, K.SEGMENT_TABLE) + k
+    assert p.int_scratch == (table + 1 + -(-table // K.SEGMENT_SCAN_TILE)
+                             + 2 * n)
+    assert p.int_scratch <= 3 * n + 2 * k + 1 + (
+        K.SEGMENT_TABLE + -(-(K.SEGMENT_TABLE + 2 * n + 2 * k)
+                            // K.SEGMENT_SCAN_TILE))
     assert p.float_scratch == 2 * chunks * f
     assert p.float_scratch <= 2 * K.SEGMENT_MAX_CHUNKS * f
     assert K.SEGMENT_THREADS % p.tx == 0 and p.tx >= 32

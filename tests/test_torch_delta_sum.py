@@ -223,18 +223,25 @@ def test_twin_matches_jax(case):
     (1, 256, 1024, 2), (79_484, 256, 1024, 2), (204_209, 256, 1024, 2),
     (630_524, 256, 1024, 2), (100_000, 256, 16_384, 2), (5_000, 7, 37, 4)])
 def test_segment_plan_is_a_pure_function_of_the_shape(m, f, k, itemsize):
-    """The delta's cut is the segment sum's at n = m: the same shape gives
-    the same cut (so the same summation order), within the limits
-    ``csrc/segment.cu`` takes, and the scratch the wrapper adds for the
-    gathered ids, the old side's counts and its sums."""
-    plan = K.segment_plan(m, f, k, itemsize)
-    assert plan == K.segment_plan(m, f, k, itemsize)
-    assert plan.rows >= k and plan.rows % 256 == 0
+    """The delta's cut is the segment sum's over its 2 m signed entries,
+    each side cut alone into placement blocks: the same shape gives the
+    same cut (so the same summation order), within the limits
+    ``csrc/segment.cu`` takes; the count table stays within
+    max(2 m, SEGMENT_TABLE) + 2 k entries whatever k, so its passes are
+    sized by the list, not by k; and the scratch is the table, its total,
+    its scan's tile sums and the 2 m entries' permutation and ids."""
+    plan = K.segment_plan(m, f, k, itemsize, sides=2)
+    assert plan == K.segment_plan(m, f, k, itemsize, sides=2)
+    assert plan.rows >= 1024 and plan.rows % 256 == 0
     assert plan.chunk >= K.SEGMENT_MIN_CHUNK
-    assert -(-m // plan.chunk) <= K.SEGMENT_MAX_CHUNKS
+    chunks = -(-2 * m // plan.chunk)
+    assert chunks <= K.SEGMENT_MAX_CHUNKS
     assert K.SEGMENT_THREADS % plan.tx == 0
-    assert plan.int_scratch == -(-m // plan.rows) * k + k + 1 + 2 * m
-    assert plan.float_scratch == 2 * -(-m // plan.chunk) * f
+    table = 2 * -(-m // plan.rows) * k
+    assert table <= max(2 * m, K.SEGMENT_TABLE) + 2 * k
+    assert plan.int_scratch == (table + 1 + -(-table // K.SEGMENT_SCAN_TILE)
+                                + 4 * m)
+    assert plan.float_scratch == 2 * chunks * f
 
 
 # ---------------------------------------------------------------------------
@@ -337,6 +344,9 @@ CARD_CASES = {
     "k=16384 bf16": (300_000, 256, 16_384, 0.2, torch.bfloat16, False),
     "odd f bf16": (50_000, 251, 300, 0.3, torch.bfloat16, False),
     "one row": (1000, 64, 10, 0.0005, torch.float32, False),
+    "k=16384 skewed bf16": (200_000, 256, 16_384, 0.2, torch.bfloat16,
+                            True),
+    "k past SMEM_K fp32": (100_000, 64, 12_289, 0.1, torch.float32, False),
 }
 
 
@@ -364,3 +374,27 @@ def test_kernel_against_twin_and_fp64(case):
     assert (np.abs(sums - sums64) <= 1e-5 * mag).all()
     assert (np.abs(sums - twin[0].cpu().double().numpy())
             <= 2e-5 * mag).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [10, 16_384])
+def test_kernel_one_moved_row(k):
+    """m = 1: the one row's delta is +x_r on its new cluster and -x_r on
+    its old, bitwise (one add each, from 0), every other row 0; counts +1
+    and -1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    n, f = 5000, 33
+    x, new, old = _moves(n, f, k, 0.0, 4)
+    r = 1234
+    old[r], new[r] = 3, 7
+    rows = torch.tensor([r], dtype=torch.int32)
+    xc, rc, nc, oc = (t.cuda() for t in (x, rows, new, old))
+    d_sums, d_counts = K.delta_sum(xc, rc, nc, oc, n_clusters=k)
+    want = torch.zeros(k, f)
+    want[7] += x[r]
+    want[3] -= x[r]
+    counts = torch.zeros(k, dtype=torch.int32)
+    counts[7], counts[3] = 1, -1
+    assert torch.equal(d_sums.cpu(), want)
+    assert torch.equal(d_counts.cpu(), counts)

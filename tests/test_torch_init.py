@@ -21,14 +21,17 @@ from hypothesis import strategies as st
 from scipy.stats import chisquare
 from sklearn.cluster import KMeans
 
+import jax
 import jax.numpy as jnp
 
+import chip_profile
 from kmcuda_tpu.models import initialization as JI
 from kmcuda_tpu.ops import distance as JD
 from kmcuda_torch import KMTPUInvalidArguments, config, kmeans_cuda
 from kmcuda_torch.models import initialization as I
 from kmcuda_torch.models.problem import prepare
 from kmcuda_torch.ops import distance as TD
+from kmcuda_torch.ops import init_kernels as IK
 from kmcuda_torch.utils.logging import Logger
 
 torch.set_num_threads(2)
@@ -68,19 +71,26 @@ def test_point_distances_match_jax(metric, dtype):
 
 
 def test_draw_block_size_matches_jax():
+    """The torch draw the port ran before the kernel (kept in
+    chip_profile.py) cut its blocks as the JAX draw does."""
     for n in (1, 2, 7, 8, 13000, 100_000, 1 << 20, 4096 * 3):
-        assert I._draw_block_size(n) == JI._draw_block_size(n)
+        assert chip_profile.torch_block_size(n) == JI._draw_block_size(n)
 
 
-@pytest.mark.parametrize("n", [7, 16])     # one level; two blocks of 8
+def _valid(n):
+    return torch.ones(n, dtype=torch.bool)
+
+
+@pytest.mark.parametrize("n", [7, 16])
 def test_weighted_draw_frequencies(n):
-    """Draw counts follow the weights (chi-square, p > 1e-3) and a row of
-    weight 0 is never drawn."""
+    """The init loops' draw (``weighted_draw``, the kernel's twin on the
+    CPU): draw counts follow the weights (chi-square, p > 1e-3) and a row
+    of weight 0 is never drawn."""
     weights = torch.tensor([0.0, 1.0, 2.5, 0.0, 3.0, 0.5, 1.0, 2.0, 0.0,
                             4.0, 1.5, 0.0, 0.25, 3.0, 2.0, 0.0][:n])
-    assert I._draw_block_size(n) == (1 if n == 7 else 8)
     us = torch.rand(6000, generator=torch.Generator().manual_seed(n))
-    counts = np.bincount([int(I._weighted_draw(weights, us[i:i + 1]))
+    counts = np.bincount([int(IK.weighted_draw(weights, _valid(n),
+                                               us[i:i + 1]))
                           for i in range(us.numel())], minlength=n)
     w = weights.numpy().astype(np.float64)
     assert (counts[w == 0] == 0).all()
@@ -94,8 +104,50 @@ def test_weighted_draw_at_the_top_of_the_range():
     last row of positive weight, not a trailing zero-weight row."""
     weights = torch.tensor([1.0, 3.0, 0.1, 0.0, 0.0, 0.0, 0.0, 0.0])
     top = torch.tensor([1.0 - 2.0 ** -24])
-    assert int(I._weighted_draw(weights, top)) == 2
-    assert int(I._weighted_draw(weights[:7], top)) == 2
+    assert int(IK.weighted_draw(weights, _valid(8), top)) == 2
+    assert int(IK.weighted_draw(weights[:7], _valid(7), top)) == 2
+
+
+def _jax_draw_margin(n):
+    """A bound, relative to the total, on the JAX draw's distance from the
+    exact inverse CDF: its running sums add at most n / bs block sums and
+    bs rows (each block sum bs rows), ``u * total`` and the residual round
+    once each; 2**-24 a rounding."""
+    bs = JI._draw_block_size(n)
+    return (n // bs + 2 * bs + 2) * 2.0**-24
+
+
+@pytest.mark.parametrize("n", [3, 4095, 4096, 4097, 8191, 100_003, 300_000])
+def test_draw_matches_jax_off_the_boundaries(n):
+    """The port's draw and the JAX package's (``_weighted_draw``) at the
+    uniform the JAX draw takes from its key pick one row, except where
+    that uniform lies within both draws' rounding margins of the boundary
+    between their rows (two rows of positive weight with none between),
+    and that at most twice in 200 draws."""
+    rng = np.random.RandomState(3 * n)
+    w = rng.rand(n).astype(np.float32)
+    w[rng.rand(n) < 0.3] = 0
+    valid = rng.rand(n) >= 0.1
+    w[~valid] = 0
+    w[n // 2], valid[n // 2] = 0.5, True   # some weight is positive
+    share = np.cumsum(w.astype(np.float64))
+    share /= share[-1]
+    margin = IK.draw_margin(n) + _jax_draw_margin(n)
+    jax_draw = jax.jit(JI._weighted_draw)
+    uniform = jax.jit(lambda kd: jax.random.uniform(kd))
+    wj, wt, vt = jnp.asarray(w), torch.from_numpy(w), torch.from_numpy(valid)
+    differ = 0
+    for kd in jax.random.split(jax.random.PRNGKey(n), 200):
+        u = np.float32(uniform(kd))
+        want = int(jax_draw(wj, kd))
+        got = int(IK.weighted_draw(wt, vt, torch.tensor([u])))
+        assert w[got] > 0
+        if got != want:
+            differ += 1
+            lo, hi = min(got, want), max(got, want)
+            assert abs(share[lo] - float(u)) <= margin
+            assert not (w[lo + 1:hi] > 0).any()
+    assert differ <= 2
 
 
 def _scan(prob, u):

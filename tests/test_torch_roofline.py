@@ -122,3 +122,19 @@ def test_delta_sum_bound_reads_each_moved_row_once(m):
     assert b["ops"] == {"fp32": 2.0 * m * F}
     assert b["by"] == "bytes"
     assert b["ms"] == pytest.approx(1e3 * want / 3.35e12, rel=1e-12)
+
+
+@pytest.mark.parametrize("n,f,dtype", [(100_000, 256, "float32"),
+                                       (1_000_000, 256, "bfloat16"),
+                                       (8_000_000, 256, "bfloat16"),
+                                       (40_000_000, 256, "bfloat16")])
+def test_draw_bound_reads_the_weights_once(n, f, dtype):
+    """The weighted draw at the smoke's shapes: the fp32 weights once, the
+    uniform, the int64 index, the drawn row read in its storage dtype and
+    written as fp32; bound by bytes."""
+    size = 4 if dtype == "float32" else 2
+    b = R.draw_bound(n, f, dtype)
+    assert b["bytes"] == 4 * n + 12 + f * (size + 4)
+    assert b["ops"] == {"fp32": float(n)}
+    assert b["by"] == "bytes"
+    assert b["ms"] == pytest.approx(1e3 * b["bytes"] / 3.35e12, rel=1e-12)

@@ -79,11 +79,13 @@ def test_segment_plan_at_scale(shape):
     nb = -(-n // plan.rows)
     nchunks = -(-n // plan.chunk)
     # the scratch launch_segment counts for itself and refuses less of
-    assert plan.int_scratch == k * nb + k + 1 + 2 * n
+    assert plan.int_scratch == (k * nb + 1
+                                + -(-k * nb // K.SEGMENT_SCAN_TILE) + 2 * n)
     assert plan.float_scratch == 2 * nchunks * f
     assert plan.int_scratch < 2**31
     assert nchunks <= K.SEGMENT_MAX_CHUNKS
-    # the cut launch_segment takes: rows >= k in warps, tx divides the
+    # the cut launch_segment takes: rows in warps (and >= k at these
+    # row counts, past SEGMENT_TABLE), tx divides the
     # block, feature slabs and chunk groups within the grid's limits
     assert plan.rows >= k and plan.rows % 32 == 0
     assert plan.chunk >= K.SEGMENT_MIN_CHUNK
