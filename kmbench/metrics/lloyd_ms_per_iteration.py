@@ -1,0 +1,10 @@
+"""The Lloyd loop: from each traced call's first ``assign_kernel`` start
+to the end of its span, over its iteration lines; ms an iteration over
+all the traced calls (``trace.loop_ms_per_iteration``).  Serves every
+``lloyd_ms_per_iteration.<cell>`` entry."""
+
+from kmbench import trace as T
+
+
+def read(run):
+    return T.loop_ms_per_iteration(run)
