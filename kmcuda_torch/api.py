@@ -32,7 +32,9 @@ given device set.
 Ported: Lloyd and Yinyang with random, k-means++, AFK-MC2 or imported
 init, and the pruned exact kNN, for L2 and angular, fp32 and fp16/bf16
 input (bf16 storage, fp32 accumulation).  ``KMTPU_PROFILE=<dir>`` traces
-the compute span of either call (``utils.profiling``).
+the compute span of either call (``utils.profiling``); under any
+``torch.profiler`` session a call carries ``kmt.`` spans and leaves a
+counter record (``utils.profiling.records``).
 """
 
 import time
@@ -51,7 +53,7 @@ from kmcuda_torch.parallel.devices import topology_for
 from kmcuda_torch.utils import validation as V
 from kmcuda_torch.utils.errors import KMTPUInvalidArguments
 from kmcuda_torch.utils.logging import Logger
-from kmcuda_torch.utils.profiling import profile_window
+from kmcuda_torch.utils import profiling as P
 
 
 def _parse_metric(metric):
@@ -112,6 +114,7 @@ def _check_cosine(problem):
             "(unit L2 norm); probe norms^2 were %s" % (probe,))
 
 
+@P.public_call("kmeans")
 def kmeans_torch(samples, clusters, tolerance=0.01, init="k-means++",
                  yinyang_t=config.DEFAULT_YINYANG_T, metric="L2",
                  average_distance=False, seed=None, device=0, verbosity=0,
@@ -121,27 +124,29 @@ def kmeans_torch(samples, clusters, tolerance=0.01, init="k-means++",
     donate_samples=True lets the library zero invalid rows of a tensor
     ``samples`` in place (when it is already contiguous and in its storage
     dtype) instead of in a copy."""
-    n, _features, k = V.check_kmeans_args(
-        samples, clusters, tolerance, yinyang_t, seed, device)
-    metric_e = _parse_metric(metric)
-    init_e, afkmc2_m, imported = _parse_init(init)
-    logger = Logger(verbosity)
-    topo = topology_for(samples, int(device), logger)
-    _tf32_off(topo)
-    problem = prepare(samples, k, metric_e, topo, logger,
-                      donate=bool(donate_samples))
-    topo = problem.topo
-    if metric_e == DistanceMetric.COSINE:
-        _check_cosine(problem)
-    if problem.n_valid < k:
-        raise KMTPUInvalidArguments(
-            "only %d finite samples for %d clusters" % (problem.n_valid, k))
+    with P.span("kmt.prepare"):
+        n, _features, k = V.check_kmeans_args(
+            samples, clusters, tolerance, yinyang_t, seed, device)
+        metric_e = _parse_metric(metric)
+        init_e, afkmc2_m, imported = _parse_init(init)
+        logger = Logger(verbosity)
+        topo = topology_for(samples, int(device), logger)
+        _tf32_off(topo)
+        problem = prepare(samples, k, metric_e, topo, logger,
+                          donate=bool(donate_samples))
+        topo = problem.topo
+        if metric_e == DistanceMetric.COSINE:
+            _check_cosine(problem)
+        if problem.n_valid < k:
+            raise KMTPUInvalidArguments(
+                "only %d finite samples for %d clusters"
+                % (problem.n_valid, k))
     if seed is None:
         seed = int(time.time())
 
     # the profiler window covers init, iterations and average distance, the
     # span the reference brackets with cudaProfilerStart/Stop
-    with profile_window(logger, topo.leader):
+    with P.profile_window(logger, topo.leader, "kmeans"):
         centroids = I.init_centroids(problem, init_e, seed,
                                      afkmc2_m=afkmc2_m, imported=imported)
         assignments = L.new_assignments(problem)
@@ -163,16 +168,17 @@ def kmeans_torch(samples, clusters, tolerance=0.01, init="k-means++",
         ad = (L.mean_assigned_distance(problem, centroids, assignments)
               if average_distance else None)
 
-    if isinstance(samples, torch.Tensor):
-        out_c = centroids.to(samples.device)
-        if problem.dtype == torch.bfloat16:
-            out_c = out_c.to(samples.dtype)
-        out_a = topo.gather(assignments, samples.device)
-    else:
-        out_c = centroids.cpu().numpy()
-        if problem.dtype == torch.bfloat16:
-            out_c = out_c.astype(samples.dtype)
-        out_a = topo.gather(assignments, "cpu").numpy().astype(np.uint32)
+    with P.span("kmt.output"):
+        if isinstance(samples, torch.Tensor):
+            out_c = centroids.to(samples.device)
+            if problem.dtype == torch.bfloat16:
+                out_c = out_c.to(samples.dtype)
+            out_a = topo.gather(assignments, samples.device)
+        else:
+            out_c = centroids.cpu().numpy()
+            if problem.dtype == torch.bfloat16:
+                out_c = out_c.astype(samples.dtype)
+            out_a = topo.gather(assignments, "cpu").numpy().astype(np.uint32)
     if not average_distance:
         return out_c, out_a
     return out_c, out_a, ad
@@ -187,6 +193,7 @@ def _knn_assignments(assignments, device) -> torch.Tensor:
         np.asarray(assignments).astype(np.int64)).to(device)
 
 
+@P.public_call("knn")
 def knn_torch(k, samples, centroids, assignments, metric="L2", device=0,
               verbosity=0, donate_samples=False):
     """Exact k-nearest neighbours of every sample, pruned by the k-means
@@ -195,29 +202,31 @@ def knn_torch(k, samples, centroids, assignments, metric="L2", device=0,
     Rows with non-finite features (k-means gave them the id
     ``len(centroids)``) come back as -1 in the int32 tensor a tensor input
     gets, and as 0xFFFFFFFF in the uint32 array a numpy input gets."""
-    n, _features, k, n_clusters = V.check_knn_args(
-        k, samples, centroids, assignments, device)
-    metric_e = _parse_metric(metric)
-    logger = Logger(verbosity)
-    topo = topology_for(samples, int(device), logger)
-    _tf32_off(topo)
-    problem = prepare(samples, n_clusters, metric_e, topo, logger,
-                      donate=bool(donate_samples))
-    topo = problem.topo
-    dev = topo.leader
-    if metric_e == DistanceMetric.COSINE:
-        _check_cosine(problem)
-    if isinstance(centroids, torch.Tensor):
-        cents = centroids.to(device=dev, dtype=torch.float32)
-    else:
-        cents = torch.tensor(np.asarray(centroids, dtype=np.float32),
-                             device=dev)
+    with P.span("kmt.prepare"):
+        n, _features, k, n_clusters = V.check_knn_args(
+            k, samples, centroids, assignments, device)
+        metric_e = _parse_metric(metric)
+        logger = Logger(verbosity)
+        topo = topology_for(samples, int(device), logger)
+        _tf32_off(topo)
+        problem = prepare(samples, n_clusters, metric_e, topo, logger,
+                          donate=bool(donate_samples))
+        topo = problem.topo
+        dev = topo.leader
+        if metric_e == DistanceMetric.COSINE:
+            _check_cosine(problem)
+        if isinstance(centroids, torch.Tensor):
+            cents = centroids.to(device=dev, dtype=torch.float32)
+        else:
+            cents = torch.tensor(np.asarray(centroids, dtype=np.float32),
+                                 device=dev)
     if verbosity > 1:
         for line in topo.memory_report():
             logger.debug(line)
-    with profile_window(logger, dev):
+    with P.profile_window(logger, dev, "knn"):
         nbr, _dist = KNN.run(problem, cents,
                              _knn_assignments(assignments, dev), k)
-    if isinstance(samples, torch.Tensor):
-        return nbr.to(samples.device)
-    return nbr.cpu().numpy().astype(np.uint32)
+    with P.span("kmt.output"):
+        if isinstance(samples, torch.Tensor):
+            return nbr.to(samples.device)
+        return nbr.cpu().numpy().astype(np.uint32)

@@ -34,6 +34,7 @@ import torch
 from kmcuda_torch import config
 from kmcuda_torch.ops import distance as D
 from kmcuda_torch.ops import init_kernels as IK
+from kmcuda_torch.utils import profiling as P
 from kmcuda_torch.utils.errors import KMTPUInvalidArguments
 
 
@@ -151,15 +152,16 @@ def _init_plus_plus(problem, gen) -> torch.Tensor:
             own.copy_(m)
         mindists.append((own, m))
     for i in range(1, k):
-        _draw_row(p, weights, valid, us[i:i + 1], cent[i:i + 1])
-        if i + 1 < k:
-            for s, (own, m), c in zip(p.shards, mindists,
-                                      p.topo.broadcast(cent[i])):
-                IK.point_min(s.x, s.x_sq, s.valid, c, m, p.metric,
-                             first=False)
-                if m is not own:
-                    own.copy_(m)
-        _progress(p, "kmeans++", i + 1, k)
+        with P.span("kmt.init.step"):
+            _draw_row(p, weights, valid, us[i:i + 1], cent[i:i + 1])
+            if i + 1 < k:
+                for s, (own, m), c in zip(p.shards, mindists,
+                                          p.topo.broadcast(cent[i])):
+                    IK.point_min(s.x, s.x_sq, s.valid, c, m, p.metric,
+                                 first=False)
+                    if m is not own:
+                        own.copy_(m)
+            _progress(p, "kmeans++", i + 1, k)
     return cent
 
 
@@ -217,19 +219,20 @@ def _init_afkmc2(problem, m: int, gen) -> torch.Tensor:
     us = torch.rand((k - 1, m), generator=gen).to(p.device)
     slot = torch.arange(k, device=p.device)
     for i in range(1, k):
-        cand_idx = ids[i - 1]
-        cand = p.take(p.xs, cand_idx)
-        # min distance of each candidate to the i chosen centroids; the
-        # penalty masks the unfilled rows of the buffer
-        pen = torch.where(slot < i, 0.0, config.PAD_PENALTY)
-        s = D.scores(cand, cent.to(p.dtype).T, D.row_sq_norms(cent),
-                     p.metric) + pen[None, :]
-        dmin = D.finalize_distance(s.amin(1), p.take(p.x_sqs, cand_idx),
-                                   p.metric)
-        prob = dmin * dmin / q[cand_idx]
-        cent[i:i + 1] = cand.index_select(0, mh_chain(
-            prob, us[i - 1])).float()
-        _progress(p, "afkmc2", i + 1, k)
+        with P.span("kmt.init.step"):
+            cand_idx = ids[i - 1]
+            cand = p.take(p.xs, cand_idx)
+            # min distance of each candidate to the i chosen centroids; the
+            # penalty masks the unfilled rows of the buffer
+            pen = torch.where(slot < i, 0.0, config.PAD_PENALTY)
+            s = D.scores(cand, cent.to(p.dtype).T, D.row_sq_norms(cent),
+                         p.metric) + pen[None, :]
+            dmin = D.finalize_distance(s.amin(1), p.take(p.x_sqs, cand_idx),
+                                       p.metric)
+            prob = dmin * dmin / q[cand_idx]
+            cent[i:i + 1] = cand.index_select(0, mh_chain(
+                prob, us[i - 1])).float()
+            _progress(p, "afkmc2", i + 1, k)
     return cent
 
 
@@ -244,9 +247,12 @@ def afkmc2_chain_length(problem, m: int) -> int:
     return m
 
 
+@P.spanned("kmt.init")
 def init_centroids(problem, method: InitMethod, seed: int, afkmc2_m: int = 0,
                    imported=None) -> torch.Tensor:
-    """Returns (k, F) fp32 centroids on the problem's device."""
+    """Returns (k, F) fp32 centroids on the problem's device.  Counts the
+    k - 1 steps of k-means++ and AFK-MC2 as ``init.steps`` here, and not in
+    their loops, which the Yinyang grouping runs too."""
     p = problem
     if method == InitMethod.IMPORT:
         return _imported(p, imported)
@@ -256,9 +262,11 @@ def init_centroids(problem, method: InitMethod, seed: int, afkmc2_m: int = 0,
         return _random(p, gen)
     if method == InitMethod.PLUS_PLUS:
         p.logger.info("performing kmeans++...")
+        P.count("init.steps", p.k - 1)
         return _init_plus_plus(p, gen)
     if method == InitMethod.AFKMC2:
         m = afkmc2_chain_length(p, afkmc2_m)
         p.logger.info("performing afkmc2 (m = %d)..." % m)
+        P.count("init.steps", p.k - 1)
         return _init_afkmc2(p, m, gen)
     raise KMTPUInvalidArguments("unknown init method %r" % (method,))

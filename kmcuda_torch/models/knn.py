@@ -22,7 +22,6 @@ rescore do not depend on the other chunks, so the neighbours do not
 depend on the cut.
 """
 
-import time
 import typing
 
 import numpy as np
@@ -31,6 +30,7 @@ import torch
 from kmcuda_torch import config
 from kmcuda_torch.ops import distance as D
 from kmcuda_torch.ops import knn_prune as KP
+from kmcuda_torch.utils import profiling as P
 
 INF = float("inf")
 #: the brute-force search scores this many query rows at a time
@@ -307,53 +307,53 @@ def run(problem, centroids, assignments, k_neighbors: int):
         nbr, dist = _search(x, p.topo.gather(p.x_sqs), x, valid,
                             k=k_neighbors, metric=p.metric,
                             tile_m=config.KNN_TILE_M)
+        P.count("knn.examined", p.n * p.n)
+        P.count("knn.queries", p.n)
         p.logger.info("calculated 1.000000 of all the distances")
         return nbr, dist
 
-    t0 = time.perf_counter()
-    plan = plan_pruned(p, centroids, assignments)
-    nchunks = plan.m_total // plan.q_chunk
-    k_batch = min(nchunks, max(1, config.KNN_QUERY_BATCH // plan.q_chunk))
-    # each shard searches a contiguous range of query chunks on its device,
-    # over its replica of the plan
-    ranges = p.topo.split(nchunks)
-    replicas = {}
-    for dev in p.topo.devices[:len(ranges)]:
-        if dev not in replicas:
-            rp = plan_on(plan, dev)
-            replicas[dev] = (rp, D.row_sq_norms(rp.xm), orig_positions(rp))
+    with P.span("kmt.knn.plan"):
+        plan = plan_pruned(p, centroids, assignments)
+        nchunks = plan.m_total // plan.q_chunk
+        k_batch = min(nchunks,
+                      max(1, config.KNN_QUERY_BATCH // plan.q_chunk))
+        # each shard searches a contiguous range of query chunks on its
+        # device, over its replica of the plan
+        ranges = p.topo.split(nchunks)
+        replicas = {}
+        for dev in p.topo.devices[:len(ranges)]:
+            if dev not in replicas:
+                rp = plan_on(plan, dev)
+                replicas[dev] = (rp, D.row_sq_norms(rp.xm),
+                                 orig_positions(rp))
     n_batches = sum(-(-(c1 - c0) // k_batch) for c0, c1 in ranges)
-    if p.logger.verbosity > 1:
-        p.topo.synchronize()
-        p.logger.debug("knn: plan (relabel+pack+radii) %.3f s"
-                       % (time.perf_counter() - t0))
-    t_search = time.perf_counter()
     parts_n, parts_d, ex_parts = [], [], []
     for (c0, c1), dev in zip(ranges, p.topo.devices):
         rp, sq, orig_pos = replicas[dev]
         for base in range(c0, c1, k_batch):
-            tb = time.perf_counter()
-            nbp, dsb, ex = search_batch(
-                rp, base, min(k_batch, c1 - base), k_neighbors=k_neighbors,
-                n_clusters=p.k, metric=p.metric, xm_sq=sq,
-                orig_pos=orig_pos)
-            parts_n.append(nbp)
-            parts_d.append(dsb)
-            ex_parts.append(ex.sum())
-            if p.logger.verbosity > 1 and n_batches > 1:
-                p.logger.debug(
-                    "knn: batch %d/%d (%d distances examined, %.3f s)"
-                    % (len(ex_parts), n_batches, int(ex_parts[-1]),
-                       time.perf_counter() - tb))
-    # examined counts add as int64: exact in any order
-    examined = int(torch.stack([e.to(p.device) for e in ex_parts]).sum())
-    p.logger.debug("knn: search total %.3f s (%d batches)"
-                   % (time.perf_counter() - t_search, n_batches))
-    frac = examined / float(p.n) ** 2
-    # the reference's progress line
-    p.logger.info("calculated %f of all the distances" % min(frac, 1.0))
-    return _finalize(p.topo.gather(parts_n), p.topo.gather(parts_d),
-                     plan.sorder, valid)
+            with P.span("kmt.knn.batch"):
+                nbp, dsb, ex = search_batch(
+                    rp, base, min(k_batch, c1 - base),
+                    k_neighbors=k_neighbors, n_clusters=p.k,
+                    metric=p.metric, xm_sq=sq, orig_pos=orig_pos)
+                parts_n.append(nbp)
+                parts_d.append(dsb)
+                ex_parts.append(ex.sum())
+                if p.logger.verbosity > 1 and n_batches > 1:
+                    p.logger.debug(
+                        "knn: batch %d/%d (%d distances examined)"
+                        % (len(ex_parts), n_batches, int(ex_parts[-1])))
+    with P.span("kmt.knn.finalize"):
+        # examined counts add as int64: exact in any order
+        examined = int(torch.stack([e.to(p.device) for e in ex_parts]).sum())
+        P.count("knn.examined", examined)
+        P.count("knn.queries", p.n)
+        p.logger.debug("knn: search total (%d batches)" % n_batches)
+        frac = examined / float(p.n) ** 2
+        # the reference's progress line
+        p.logger.info("calculated %f of all the distances" % min(frac, 1.0))
+        return _finalize(p.topo.gather(parts_n), p.topo.gather(parts_d),
+                         plan.sorder, valid)
 
 
 def _finalize(nbr, dist, sorder, valid):

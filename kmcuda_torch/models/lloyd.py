@@ -17,6 +17,7 @@ from kmcuda_torch import config
 from kmcuda_torch.ops import assign as A
 from kmcuda_torch.ops import distance as D
 from kmcuda_torch.parallel.devices import shaped_like
+from kmcuda_torch.utils import profiling as P
 
 #: rows per step of the average-distance pass (bounds its gather)
 DISTANCE_CHUNK = 1 << 16
@@ -81,19 +82,22 @@ def drive(driver, steps, walls=None):
     driver until it stops; returns the last ``LloydStep``.  The generator
     stays open: a Yinyang run may continue its accumulation stream.
     ``walls``, a list, gets each iteration's seconds on the host clock,
-    read after the count's sync."""
+    read after the count's sync.  Each iteration, the generator's step and
+    ``Driver.absorb``, is one span ``kmt.lloyd.iteration``."""
     t = time.perf_counter()
-    for step in steps:
-        more = driver.absorb(step.changed)
-        if walls is not None:
-            now = time.perf_counter()
-            walls.append(now - t)
-            t = now
-        if not more:
-            break
+    more = True
+    while more:
+        with P.span("kmt.lloyd.iteration"):
+            step = next(steps)
+            more = driver.absorb(step.changed)
+            if walls is not None:
+                now = time.perf_counter()
+                walls.append(now - t)
+                t = now
     return step
 
 
+@P.spanned("kmt.lloyd")
 def run(problem, centroids, assignments, tolerance, max_iterations=None,
         iter_offset=0):
     """Iterate Lloyd until reassignments <= tolerance * n.

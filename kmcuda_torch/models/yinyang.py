@@ -39,6 +39,7 @@ from kmcuda_torch.ops import assign as A
 from kmcuda_torch.ops import distance as D
 from kmcuda_torch.ops import yinyang as YY
 from kmcuda_torch.parallel.devices import shaped_like
+from kmcuda_torch.utils import profiling as P
 from kmcuda_torch.utils.logging import Logger
 
 
@@ -58,11 +59,12 @@ def _group_kmeans(centroids, groups: int, metric, gen):
     c0 = I._init_plus_plus(sub, gen)
     g_cent, g_assign, _best, _it, _ch = L.run(
         sub, c0, sub.assign0, config.YINYANG_GROUP_TOLERANCE)
-    dists = D.pairwise_distance(sub.x, g_cent, metric)
-    dists = torch.where(torch.isfinite(dists), dists, float("inf"))
-    prefs = torch.topk(-dists, min(8, groups), dim=1).indices
-    return (g_assign.cpu().numpy().astype(np.int64),
-            prefs.cpu().numpy().astype(np.int64))
+    with P.span("kmt.yinyang.layout"):
+        dists = D.pairwise_distance(sub.x, g_cent, metric)
+        dists = torch.where(torch.isfinite(dists), dists, float("inf"))
+        prefs = torch.topk(-dists, min(8, groups), dim=1).indices
+        return (g_assign.cpu().numpy().astype(np.int64),
+                prefs.cpu().numpy().astype(np.int64))
 
 
 def balance_groups(group_of, prefs, groups: int, cap: int):
@@ -106,19 +108,21 @@ def balance_groups(group_of, prefs, groups: int, cap: int):
     return group_of.astype(np.int32), flat_slot, pad_src, pad_pen
 
 
+@P.spanned("kmt.yinyang.grouping")
 def _group_centroids(centroids, groups: int, metric, gen) -> YY.GroupLayout:
     """Group k-means, then capacity balancing, as a layout on the
     centroids' device."""
     group_of, prefs = _group_kmeans(centroids, groups, metric, gen)
-    cap = _group_cap(centroids.shape[0], groups)
-    group_of, flat_slot, pad_src, pad_pen = balance_groups(
-        group_of, prefs, groups, cap)
-    dev = centroids.device
-    return YY.GroupLayout(
-        group_of=torch.from_numpy(group_of).long().to(dev),
-        flat_slot=torch.from_numpy(flat_slot).long().to(dev),
-        pad_src=torch.from_numpy(pad_src).long().to(dev),
-        pad_pen=torch.from_numpy(pad_pen).to(dev), cap=cap)
+    with P.span("kmt.yinyang.layout"):
+        cap = _group_cap(centroids.shape[0], groups)
+        group_of, flat_slot, pad_src, pad_pen = balance_groups(
+            group_of, prefs, groups, cap)
+        dev = centroids.device
+        return YY.GroupLayout(
+            group_of=torch.from_numpy(group_of).long().to(dev),
+            flat_slot=torch.from_numpy(flat_slot).long().to(dev),
+            pad_src=torch.from_numpy(pad_src).long().to(dev),
+            pad_pen=torch.from_numpy(pad_pen).to(dev), cap=cap)
 
 
 def run(problem, centroids, assignments, tolerance, groups: int,
@@ -178,12 +182,13 @@ def _run(problem, centroids, assignments, tolerance, groups: int,
         "yinyang: %d groups; draft Lloyd until < %.0f%% reassignments"
         % (groups, config.YINYANG_DRAFT_REASSIGNMENTS * 100))
     t0 = time.perf_counter()
-    drv = L.Driver(p.logger, int(config.YINYANG_DRAFT_REASSIGNMENTS * p.n),
-                   budget)
-    steps = A.lloyd_run(p.xs, p.valids, assignments, centroids,
-                        n_clusters=p.k, metric=p.metric)
-    walls = []
-    step = L.drive(drv, steps, walls)
+    with P.span("kmt.yinyang.draft"):
+        drv = L.Driver(p.logger,
+                       int(config.YINYANG_DRAFT_REASSIGNMENTS * p.n), budget)
+        steps = A.lloyd_run(p.xs, p.valids, assignments, centroids,
+                            n_clusters=p.k, metric=p.metric)
+        walls = []
+        step = L.drive(drv, steps, walls)
     # the draft's seconds per iteration after its first (which may build
     # the kernels): the controller's Lloyd floor
     lloyd_spi = (sum(walls[1:]) / (len(walls) - 1) if len(walls) > 1
@@ -227,28 +232,50 @@ def _run(problem, centroids, assignments, tolerance, groups: int,
     # judged window runs dense and measures it before sparse may run
     floor_probe = ctl and lloyd_spi is None
     sched.sparse_ok = not floor_probe
-    window = 1 if ctl else None
-    judged = False
-    reprobe_after = config.YY_REPROBE_ITERS
-    since_revoke = 0
     loop = YY.yy_run(p.xs, p.x_sqs, p.valids, step.assign, step.c_used,
                      step.sums, step.counts, step.changed, layout,
                      n_clusters=p.k, metric=p.metric, sched=sched,
                      bounds_dtype=bounds_dtype)
+    ys = _controlled_loop(p, drv, loop, sched, ctl, lloyd_spi, floor_probe)
+    loop.close()
+    drv.finish()
+    p.logger.debug("yinyang: main loop %.3f s (%d iterations total)"
+                   % (time.perf_counter() - t2, drv.done))
+    return ys.c_used, ys.assign, None, drv.done
+
+
+@P.spanned("kmt.yinyang.loop")
+def _controlled_loop(p, drv, loop, sched, ctl: bool, lloyd_spi,
+                     floor_probe: bool):
+    """Feed the Yinyang loop's steps to ``drv`` (a ``lloyd.Driver``), in
+    the controller's windows, until it stops; returns the last
+    ``YinyangStep``.  Each iteration, the loop's step and ``drv.absorb``,
+    is one span ``kmt.yinyang.iteration`` with its counters."""
+    P.count("yinyang.rows", p.n_valid)
+    window = 1 if ctl else None
+    judged = False
+    reprobe_after = config.YY_REPROBE_ITERS
+    since_revoke = 0
     more = True
     while more:
         t_w = time.perf_counter()
         its = sparse = 0
-        for ys in loop:
-            more = drv.absorb(ys.changed)
-            p.logger.debug("yinyang: %d candidates, %d samples passed the "
-                           "global filter" % (ys.candidates, ys.passed))
-            p.logger.debug("yinyang: %s iteration, %d moved rows patched"
-                           % (ys.variant, ys.patched))
+        while more and its != window:
+            with P.span("kmt.yinyang.iteration"):
+                ys = next(loop)
+                more = drv.absorb(ys.changed)
+                P.count("yinyang.candidates", ys.candidates)
+                P.count("yinyang.passed", ys.passed)
+                P.count("yinyang.patched", ys.patched)
+                if p.logger.verbosity > 1:
+                    p.logger.debug(
+                        "yinyang: %d candidates, %d samples passed the "
+                        "global filter" % (ys.candidates, ys.passed))
+                    p.logger.debug(
+                        "yinyang: %s iteration, %d moved rows patched"
+                        % (ys.variant, ys.patched))
             its += 1
             sparse += ys.variant.startswith("sparse")
-            if not more or its == window:
-                break
         wall = time.perf_counter() - t_w
         p.logger.debug("yinyang: segment of %d iterations in %.3f s"
                        % (its, wall))
@@ -289,8 +316,4 @@ def _run(problem, centroids, assignments, tolerance, groups: int,
                 window = config.YY_PROBE_ITERS
                 reprobe_after = min(reprobe_after * 2,
                                     config.YY_REPROBE_ITERS_MAX)
-    loop.close()
-    drv.finish()
-    p.logger.debug("yinyang: main loop %.3f s (%d iterations total)"
-                   % (time.perf_counter() - t2, drv.done))
-    return ys.c_used, ys.assign, None, drv.done
+    return ys

@@ -27,6 +27,7 @@ import torch
 from kmcuda_torch.ops import compact as C
 from kmcuda_torch.ops import distance as D
 from kmcuda_torch.parallel.devices import Topology, as_shards, shaped_like
+from kmcuda_torch.utils import profiling as P
 
 INT32_MAX = int(np.iinfo(np.int32).max)
 
@@ -113,13 +114,16 @@ def lloyd_run(x, valid, assign, centroids, *, n_clusters: int,
             counts = topo.reduce([o[3] for o in outs])
             c_next = D.normalize_centroids(sums, counts.float(), metric)
             changed = sum(topo.read([o[4] for o in outs]))
+            P.count("lloyd.dense", 1)
         else:
             outs = [K.assign_only_pass(xi, vi, ai, ci, **kw)
                     for xi, vi, ai, ci in zip(xs, valids, assigns, cs)]
             changed = sum(topo.read([o[2] for o in outs]))
-            deltas = [K.delta_sum(xi, C.moved_rows(o[0], ai), o[0], ai,
-                                  n_clusters=k)
-                      for xi, ai, o in zip(xs, assigns, outs)]
+            moved = [C.moved_rows(o[0], ai) for ai, o in zip(assigns, outs)]
+            P.count("lloyd.moved_rows", sum(r.numel() for r in moved))
+            deltas = [K.delta_sum(xi, rows, o[0], ai, n_clusters=k)
+                      for xi, rows, ai, o in zip(xs, moved, assigns, outs)]
+            del moved   # held across the yield, it would raise the peak
             sums = sums + topo.reduce([d[0] for d in deltas])
             counts = counts + topo.reduce([d[1] for d in deltas])
             c_next = D.normalize_centroids(sums, counts.float(), metric)

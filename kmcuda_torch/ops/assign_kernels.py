@@ -30,6 +30,7 @@ from kmcuda_torch.ops import _build
 from kmcuda_torch.ops import compact as C
 from kmcuda_torch.ops import distance as D
 from kmcuda_torch.ops.assign import pad_clusters, rescore_table
+from kmcuda_torch.utils import profiling as P
 from kmcuda_torch.utils.errors import KMTPUInvalidArguments
 
 #: kernel launches per entry; a wrapper adds one where it launches
@@ -192,6 +193,7 @@ def launch_segment_sum(lib, x, aid, k, stream):
     return sums, counts
 
 
+@P.spanned("kmt.assign_pass")
 def assign_only_pass(x, valid, prev_assign, centroids, *, n_clusters: int,
                      metric: D.DistanceMetric):
     """B2: returns (assign (n,) int32, best (n,) fp32, changed () int32)."""
@@ -209,6 +211,7 @@ def assign_only_pass(x, valid, prev_assign, centroids, *, n_clusters: int,
     return out
 
 
+@P.spanned("kmt.fused_pass")
 def fused_lloyd_pass(x, valid, prev_assign, centroids, *, n_clusters: int,
                      metric: D.DistanceMetric):
     """B1: returns (assign (n,) int32, best (n,) fp32, sums (K, F) fp32,
@@ -280,6 +283,7 @@ def _check_delta_args(x, rows, assign_new, assign_old, k: int) -> None:
             "got [%d, %d]" % (k, k, low, high))
 
 
+@P.spanned("kmt.delta_sum")
 def delta_sum(x, rows, assign_new, assign_old, *, n_clusters: int):
     """The centroid delta of the moved rows ``rows`` (ascending (m,) int32
     row ids of x): (d_sums (K, F) fp32, d_counts (K,) int32), where a row

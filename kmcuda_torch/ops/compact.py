@@ -18,6 +18,7 @@ import torch
 
 from kmcuda_torch import config
 from kmcuda_torch.ops.distance import matmul_f32
+from kmcuda_torch.utils import profiling as P
 
 
 def predict_dense(prev_changed: int, n_total: int) -> bool:
@@ -39,6 +40,7 @@ def stable_partition(mask: torch.Tensor):
     return order, mask.sum()
 
 
+@P.spanned("kmt.moved_rows")
 def moved_rows(assign_new: torch.Tensor,
                assign_old: torch.Tensor) -> torch.Tensor:
     """The rows whose assignment changed, ascending, int32: the rows

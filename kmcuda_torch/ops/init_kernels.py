@@ -34,6 +34,7 @@ import torch
 
 from kmcuda_torch.ops import _build
 from kmcuda_torch.ops import distance as D
+from kmcuda_torch.utils import profiling as P
 from kmcuda_torch.utils.errors import KMTPUInvalidArguments
 
 #: kernel launches per entry; the wrapper adds one where it launches
@@ -78,6 +79,7 @@ def _check_args(x, x_sq, valid, c, m) -> None:
         raise KMTPUInvalidArguments("unsupported device %s" % x.device)
 
 
+@P.spanned("kmt.point_min")
 def point_min(x, x_sq, valid, c, m, metric: D.DistanceMetric, *,
               first: bool):
     """One init step, in place: ``m`` becomes ``where(valid, d, 0)`` when
@@ -168,6 +170,7 @@ def _check_draw_args(w, valid, u, row_source, out_row) -> None:
             % (f, tuple(out_row.shape), out_row.dtype))
 
 
+@P.spanned("kmt.weighted_draw")
 def weighted_draw(w, valid, u, *, row_source=None, out_row=None):
     """One row ~ Categorical(w) at the uniform ``u`` (1,) fp32 in [0, 1):
     w (n,) fp32 >= 0, over ``valid`` (n,) bool instead when no weight is

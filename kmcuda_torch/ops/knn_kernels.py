@@ -25,6 +25,7 @@ import torch
 from kmcuda_torch.ops import _build
 from kmcuda_torch.ops import distance as D
 from kmcuda_torch.ops import knn_prune as KP
+from kmcuda_torch.utils import profiling as P
 from kmcuda_torch.utils.errors import KMTPUInvalidArguments
 
 #: kernel launches per entry; the wrapper adds one where it launches
@@ -107,6 +108,7 @@ def _check_args(xq, xq_sq, q_pos, q_valid, n_qvalid, n_steps, tile_order,
                     name, shape, dtype, tuple(t.shape), t.dtype))
 
 
+@P.spanned("kmt.walk")
 def walk(xq, xq_sq, q_pos, q_valid, n_qvalid, n_steps, tile_order,
          sorted_min, tile_nvalid, xm, xm_sq, m_spos, *, k_neighbors: int,
          kk: int, chunk: int, tile_m: int, group: int, metric,

@@ -79,6 +79,7 @@ from kmcuda_torch.ops import assign_kernels as K
 from kmcuda_torch.ops import compact as C
 from kmcuda_torch.ops import distance as D
 from kmcuda_torch.parallel.devices import Topology, as_shards, shaped_like
+from kmcuda_torch.utils import profiling as P
 
 #: every elementwise bound pass runs over row chunks of at most this many
 #: elements of its widest temporary, bounding its fp32 scratch to 256 MB
@@ -315,15 +316,16 @@ def _exact_u(xb, xsqb, a, t: _Tables, metric):
     return 2.0 * torch.arcsin(torch.clamp(chord * 0.5, 0.0, 1.0))
 
 
-def _row_chunks(rows, n: int, step: int):
-    """Index chunks of ``rows`` (ascending int64 ids), or slices of all n
-    rows when ``rows`` is None."""
+def _row_chunk(rows, start: int, step: int):
+    """Chunk [start, start + step) of ``rows`` (ascending int64 ids), or
+    that slice of all the rows when ``rows`` is None."""
     if rows is None:
-        for start in range(0, n, step):
-            yield slice(start, start + step)
-    else:
-        for start in range(0, rows.numel(), step):
-            yield rows[start:start + step]
+        return slice(start, start + step)
+    return rows[start:start + step]
+
+
+def _n_rows(x, rows) -> int:
+    return x.shape[0] if rows is None else rows.numel()
 
 
 def _refresh(x, x_sq, aid, rows, state, t: _Tables, layout, metric):
@@ -334,28 +336,30 @@ def _refresh(x, x_sq, aid, rows, state, t: _Tables, layout, metric):
     groups, cap = layout.pad_src.shape
     eps = D.rounding_eps(x.dtype)
     env = panel_envelope(x.dtype, metric, x.shape[1])
-    for r in _row_chunks(rows, x.shape[0],
-                         max(1, BOUND_CHUNK_ELEMENTS // (groups * cap))):
-        xb = x[r]
-        xsqb = x_sq[r][:, None]
-        a = aid[r].long()
-        u_new = _exact_u(xb, xsqb[:, 0], a, t, metric)
-        own = layout.flat_slot[a]
-        g_new = own // cap
-        sp = D.matmul_f32(xb, t.panel_t) + t.bias
-        torch.nan_to_num_(sp, nan=config.PAD_PENALTY,
-                          posinf=config.PAD_PENALTY,
-                          neginf=config.PAD_PENALTY)
-        sp.scatter_(1, own[:, None], config.PAD_PENALTY)
-        l_sc = sp.view(-1, groups, cap).amin(dim=2)
-        if env:   # below both the bf16-scored and the exact score
-            l_sc = l_sc - env * _x_norm(xsqb) * t.g_norm
-        l_new = _finalize(l_sc, xsqb, metric, env)
-        # downward margin: the panel product rounds unlike the kernel's
-        l_new = l_new - eps * (1.0 + l_new)
-        u[r] = _u_store(u_new, acc[g_new])
-        l[r] = lower_cast(l_new + acc, l.dtype)
-        ga[r] = g_new
+    step = max(1, BOUND_CHUNK_ELEMENTS // (groups * cap))
+    for start in range(0, _n_rows(x, rows), step):
+        with P.span("kmt.yinyang.bounds"):
+            r = _row_chunk(rows, start, step)
+            xb = x[r]
+            xsqb = x_sq[r][:, None]
+            a = aid[r].long()
+            u_new = _exact_u(xb, xsqb[:, 0], a, t, metric)
+            own = layout.flat_slot[a]
+            g_new = own // cap
+            sp = D.matmul_f32(xb, t.panel_t) + t.bias
+            torch.nan_to_num_(sp, nan=config.PAD_PENALTY,
+                              posinf=config.PAD_PENALTY,
+                              neginf=config.PAD_PENALTY)
+            sp.scatter_(1, own[:, None], config.PAD_PENALTY)
+            l_sc = sp.view(-1, groups, cap).amin(dim=2)
+            if env:   # below both the bf16-scored and the exact score
+                l_sc = l_sc - env * _x_norm(xsqb) * t.g_norm
+            l_new = _finalize(l_sc, xsqb, metric, env)
+            # downward margin: the panel product rounds unlike the kernel's
+            l_new = l_new - eps * (1.0 + l_new)
+            u[r] = _u_store(u_new, acc[g_new])
+            l[r] = lower_cast(l_new + acc, l.dtype)
+            ga[r] = g_new
 
 
 def _refresh_u(x, x_sq, aid, rows, state, t: _Tables, layout, metric):
@@ -363,12 +367,14 @@ def _refresh_u(x, x_sq, aid, rows, state, t: _Tables, layout, metric):
     l is kept (a plain pass).  Writes ``state`` in place."""
     u, _l, ga, acc = state
     cap = layout.cap
-    for r in _row_chunks(rows, x.shape[0],
-                         max(1, BOUND_CHUNK_ELEMENTS // x.shape[1])):
-        a = aid[r].long()
-        g_new = layout.flat_slot[a] // cap
-        u[r] = _u_store(_exact_u(x[r], x_sq[r], a, t, metric), acc[g_new])
-        ga[r] = g_new
+    step = max(1, BOUND_CHUNK_ELEMENTS // x.shape[1])
+    for start in range(0, _n_rows(x, rows), step):
+        with P.span("kmt.yinyang.bounds"):
+            r = _row_chunk(rows, start, step)
+            a = aid[r].long()
+            g_new = layout.flat_slot[a] // cap
+            u[r] = _u_store(_exact_u(x[r], x_sq[r], a, t, metric), acc[g_new])
+            ga[r] = g_new
 
 
 def yy_run(x, x_sq, valid, assign, c_used, sums, counts, prev_changed: int,
@@ -417,98 +423,101 @@ def yy_run(x, x_sq, valid, assign, c_used, sums, counts, prev_changed: int,
     first = True
     kw = dict(n_clusters=k, metric=metric)
     while True:
-        c_new = D.normalize_centroids(sums, counts.float(), metric)
-        drift = exact_drift(c_new, c_cur, metric)
-        acc = (acc + torch.where(real, drift[layout.pad_src], 0.0).amax(1)
-               ) * (1.0 + 2.0 ** -20)
-        t = _tables(c_new, layout, dtype, metric)
-        ts = [t.to(dev) for dev in topo.devices]
-        accs = topo.broadcast(acc)
-        cs = topo.broadcast(c_new)
-        states = list(zip(us, ls, gas, accs))
-        lmins = [_lmin_now(l, a) for l, a in zip(ls, accs)]
-        if first or debug == 1:   # no bounds yet; triage distrusts the filter
-            cands, n_cand = valids, n_valid
-        else:
-            cands = [v & (_u_now(u, ga, a) >= lm) for v, u, ga, a, lm in
-                     zip(valids, us, gas, accs, lmins)]
-            n_cand = sum(topo.read([c.sum() for c in cands]))
-        sum_dense = C.predict_dense(prev_changed, n)
-        # the triage modes exercise the sparse path in every iteration
-        dense = not debug and (first or not s.sparse_ok
-                               or np.float32(n_cand) > dense_rows)
+        with P.span("kmt.yinyang.filter"):
+            c_new = D.normalize_centroids(sums, counts.float(), metric)
+            drift = exact_drift(c_new, c_cur, metric)
+            acc = (acc + torch.where(real, drift[layout.pad_src], 0.0).amax(1)
+                   ) * (1.0 + 2.0 ** -20)
+            t = _tables(c_new, layout, dtype, metric)
+            ts = [t.to(dev) for dev in topo.devices]
+            accs = topo.broadcast(acc)
+            cs = topo.broadcast(c_new)
+            states = list(zip(us, ls, gas, accs))
+            lmins = [_lmin_now(l, a) for l, a in zip(ls, accs)]
+            # no bounds yet; triage distrusts the filter
+            if first or debug == 1:
+                cands, n_cand = valids, n_valid
+            else:
+                cands = [v & (_u_now(u, ga, a) >= lm) for v, u, ga, a, lm in
+                         zip(valids, us, gas, accs, lmins)]
+                n_cand = sum(topo.read([c.sum() for c in cands]))
+            sum_dense = C.predict_dense(prev_changed, n)
+            # the triage modes exercise the sparse path in every iteration
+            dense = not debug and (first or not s.sparse_ok
+                                   or np.float32(n_cand) > dense_rows)
 
-        # ---- the schedule (kmcuda_tpu/ops/yinyang.py:669-705) ----------
-        if s.ref_any:
-            period = min(s.period * 2, backoff_max) if dense else 1
-        else:
-            period = s.period
-        refresh = dense and s.refresh_in <= 0 and not s.ref_any
-        tighten = s.tskip <= 0
-        acc_now = s.acc_extra + max(n_cand - s.cand_mark, 0)
-        sparse_refresh = (not dense and not s.ref_any and (
-            s.cand_mark == 0
-            or np.float32(acc_now)
-            >= np.float32(config.YY_SPARSE_REFRESH_SURCHARGE)
-            * np.float32(min(s.prev_passed, n_cand))))
-        if debug:   # triage tightens and refreshes every bound it touches
-            sparse_refresh, tighten = True, True
+            # ---- the schedule (kmcuda_tpu/ops/yinyang.py:669-705) ------
+            if s.ref_any:
+                period = min(s.period * 2, backoff_max) if dense else 1
+            else:
+                period = s.period
+            refresh = dense and s.refresh_in <= 0 and not s.ref_any
+            tighten = s.tskip <= 0
+            acc_now = s.acc_extra + max(n_cand - s.cand_mark, 0)
+            sparse_refresh = (not dense and not s.ref_any and (
+                s.cand_mark == 0
+                or np.float32(acc_now)
+                >= np.float32(config.YY_SPARSE_REFRESH_SURCHARGE)
+                * np.float32(min(s.prev_passed, n_cand))))
+            if debug:   # triage tightens and refreshes every bound it touches
+                sparse_refresh, tighten = True, True
 
-        # ---- the survivors of a sparse path, per shard ------------------
-        rowss = [None] * d
-        if not dense:
-            for i in range(d):
-                rows = torch.nonzero(cands[i]).squeeze(1)
-                if tighten:
-                    ab = assigns[i][rows].long()
-                    u_ex = _tighten(xs[i][rows], xsqs[i][rows], ab, ts[i],
-                                    eps, metric)
-                    us[i][rows] = _u_store(
-                        u_ex, accs[i][lays[i].flat_slot[ab] // cap])
-                    if debug != 2:   # triage mode 2 distrusts the tighten
-                        rows = rows[u_ex >= lmins[i][rows]]
-                rowss[i] = rows
+            # ---- the survivors of a sparse path, per shard --------------
+            rowss = [None] * d
+            if not dense:
+                for i in range(d):
+                    rows = torch.nonzero(cands[i]).squeeze(1)
+                    if tighten:
+                        ab = assigns[i][rows].long()
+                        u_ex = _tighten(xs[i][rows], xsqs[i][rows], ab, ts[i],
+                                        eps, metric)
+                        us[i][rows] = _u_store(
+                            u_ex, accs[i][lays[i].flat_slot[ab] // cap])
+                        if debug != 2:   # triage mode 2 distrusts the tighten
+                            rows = rows[u_ex >= lmins[i][rows]]
+                    rowss[i] = rows
 
-        # ---- assignment: exactly Lloyd's iteration, or B2 gathered -----
-        moved = None
-        if sum_dense:
-            outs = [K.fused_lloyd_pass(xi, vi, ai, ci, **kw)
-                    for xi, vi, ai, ci in zip(xs, valids, assigns, cs)]
-            aids = [o[0] for o in outs]
-            sums = topo.reduce([o[2] for o in outs])
-            counts = topo.reduce([o[3] for o in outs])
-            per = topo.read([o[4] for o in outs])
-        elif dense:
-            outs = [K.assign_only_pass(xi, vi, ai, ci, **kw)
-                    for xi, vi, ai, ci in zip(xs, valids, assigns, cs)]
-            aids = [o[0] for o in outs]
-            per = topo.read([o[2] for o in outs])
-            moved = [torch.nonzero(aid != a).squeeze(1)
-                     for aid, a in zip(aids, assigns)]
-        else:
-            aids, per, moved = list(assigns), [0] * d, []
-            launched = []
-            for i, rows in enumerate(rowss):
-                a_r = assigns[i][rows]
-                if rows.numel():
-                    aid_r, _best, changed_t = K.assign_only_pass(
-                        xs[i][rows], valids[i][rows], a_r, cs[i], **kw)
-                    aids[i] = assigns[i].index_copy(0, rows, aid_r)
-                    launched.append((i, changed_t))
-                    moved.append(rows[aid_r != a_r])
-                else:
-                    moved.append(rows)
-            for (i, _), ch in zip(launched, topo.read(
-                    [c for _, c in launched]) if launched else []):
-                per[i] = ch
-        changed = sum(per)
-        if moved is not None:
-            deltas = [K.delta_sum(xi, mv.to(torch.int32), aid, a,
-                                  n_clusters=k)
-                      for xi, aid, a, mv in zip(xs, aids, assigns, moved)]
-            sums = sums + topo.reduce([dl[0] for dl in deltas])
-            counts = counts + topo.reduce([dl[1] for dl in deltas])
-        passed = n_valid if dense else sum(r.numel() for r in rowss)
+        with P.span("kmt.yinyang.assign"):
+            # ---- assignment: exactly Lloyd's iteration, or B2 gathered -
+            moved = None
+            if sum_dense:
+                outs = [K.fused_lloyd_pass(xi, vi, ai, ci, **kw)
+                        for xi, vi, ai, ci in zip(xs, valids, assigns, cs)]
+                aids = [o[0] for o in outs]
+                sums = topo.reduce([o[2] for o in outs])
+                counts = topo.reduce([o[3] for o in outs])
+                per = topo.read([o[4] for o in outs])
+            elif dense:
+                outs = [K.assign_only_pass(xi, vi, ai, ci, **kw)
+                        for xi, vi, ai, ci in zip(xs, valids, assigns, cs)]
+                aids = [o[0] for o in outs]
+                per = topo.read([o[2] for o in outs])
+                moved = [torch.nonzero(aid != a).squeeze(1)
+                         for aid, a in zip(aids, assigns)]
+            else:
+                aids, per, moved = list(assigns), [0] * d, []
+                launched = []
+                for i, rows in enumerate(rowss):
+                    a_r = assigns[i][rows]
+                    if rows.numel():
+                        aid_r, _best, changed_t = K.assign_only_pass(
+                            xs[i][rows], valids[i][rows], a_r, cs[i], **kw)
+                        aids[i] = assigns[i].index_copy(0, rows, aid_r)
+                        launched.append((i, changed_t))
+                        moved.append(rows[aid_r != a_r])
+                    else:
+                        moved.append(rows)
+                for (i, _), ch in zip(launched, topo.read(
+                        [c for _, c in launched]) if launched else []):
+                    per[i] = ch
+            changed = sum(per)
+            if moved is not None:
+                deltas = [K.delta_sum(xi, mv.to(torch.int32), aid, a,
+                                      n_clusters=k)
+                          for xi, aid, a, mv in zip(xs, aids, assigns, moved)]
+                sums = sums + topo.reduce([dl[0] for dl in deltas])
+                counts = counts + topo.reduce([dl[1] for dl in deltas])
+            passed = n_valid if dense else sum(r.numel() for r in rowss)
 
         # ---- bounds: the four variants, then the moved-row patch --------
         refreshed = refresh or sparse_refresh

@@ -504,8 +504,9 @@ def test_profile_window(blobs, tmp_path, monkeypatch, capsys):
               if f.endswith(".pt.trace.json")]
     assert len(traces) == 1, traces
 
+    written = sorted(os.listdir(trace_dir))  # the trace and its counters
     monkeypatch.delenv("KMTPU_PROFILE")
     kmeans_cuda(x, 50, init="random", seed=5, tolerance=0.01, yinyang_t=0,
                 verbosity=2, max_iterations=1)
     assert "profiler trace" not in capsys.readouterr().out
-    assert len(os.listdir(trace_dir)) == 1
+    assert sorted(os.listdir(trace_dir)) == written
