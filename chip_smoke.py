@@ -370,8 +370,10 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-#: the kernels whose ptxas lines kernel_report prints
-KERNEL_NAMES = ("assign_kernel", "walk_kernel", "seg_count_kernel",
+#: the kernels whose ptxas lines kernel_report prints (the persistent
+#: B2 kernel's name holds the streamed one's: it comes first)
+KERNEL_NAMES = ("assign_kernel_ws", "assign_kernel", "walk_kernel",
+                "seg_count_kernel",
                 "seg_tile_kernel", "seg_scan_kernel", "seg_counts_kernel",
                 "seg_place_kernel", "seg_reduce_kernel", "seg_fix_kernel",
                 "point_min_kernel", "draw_partials_kernel",
@@ -379,8 +381,14 @@ KERNEL_NAMES = ("assign_kernel", "walk_kernel", "seg_count_kernel",
 
 
 def _kernel_name(mangled: str):
-    """'assign_kernel<bf16>' etc. for a mangled name, or None."""
+    """'assign_kernel<bf16>' etc. for a mangled name, or None; the
+    persistent B2 kernel by its count of 64-feature chunks,
+    'assign_kernel_ws<bf16, 4 chunks>'."""
     for name in KERNEL_NAMES:
+        if name == "assign_kernel_ws" and name in mangled:
+            chunks = re.search(r"assign_kernel_wsILi(\d+)E", mangled)
+            return "%s<bf16, %s chunks>" % (name, chunks.group(1)
+                                            if chunks else "?")
         if name in mangled:
             if name in ("assign_kernel", "walk_kernel", "seg_reduce_kernel",
                         "point_min_kernel"):
@@ -407,6 +415,8 @@ def kernel_report():
             print("ptxas %s: %s; %s"
                   % (name, log[i + 3].split(":", 1)[1].strip(),
                      log[i + 2].strip()), flush=True)
+        if "Potential Performance Loss" in line or "is injected" in line:
+            print("ptxas note: %s" % line.strip(), flush=True)
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path())],
                           capture_output=True, text=True, check=True).stdout
@@ -425,6 +435,8 @@ def kernel_report():
           % (", ".join("%s %d" % kv for kv in sorted(counts.items())),
              float_atomics), flush=True)
     for name in ("assign_kernel<bf16>", "assign_kernel<float>",
+                 *("assign_kernel_ws<bf16, %d chunks>" % c
+                   for c in range(1, 5)),
                  "walk_kernel<bf16>", "walk_kernel<float>"):
         if not counts.get(name):
             raise AssertionError("%s does not run on wgmma" % name)
@@ -511,20 +523,55 @@ def time_kernels(tag, shape, dtype, reps, errs=None):
             "torch.zeros(k, f).index_add_(0, aid, x.float())",
             R.segment_sum_bound(n, f, k, name_dt)),
     }
+    # B2's route at this shape; where it is the persistent kernel, the
+    # streamed kernel is forced beside it (held bitwise, then timed between
+    # the two kernel runs)
+    route = K.assign_route(dtype, f, x.data_ptr() % 16 == 0)
+    streamed = None
+    if route == K.ROUTE_PERSISTENT:
+        streamed = lambda: K._launch_assign(lib, x, valid, prev, c, k,
+                                            D.DistanceMetric.L2, stream,
+                                            route=K.ROUTE_STREAMED)
+        want = streamed()
+        got = K._launch_assign(lib, x, valid, prev, c, k,
+                               D.DistanceMetric.L2, stream,
+                               route=K.ROUTE_PERSISTENT)
+        same = (torch.equal(got[0], want[0])
+                and torch.equal(got[1].view(torch.int32),
+                                want[1].view(torch.int32))
+                and int(got[2]) == int(want[2]))
+        print("%s B2 %dx%d k=%d %s: the persistent route's aid, best and "
+              "changed bitwise the streamed route's: %s"
+              % (tag, n, f, k, name_dt, same), flush=True)
+        if not same:
+            raise AssertionError("B2's routes differ")
+        del want, got
     out = {}
     for name, (kern, plain, library, label, bnd) in fns.items():
         p1 = time_ms(plain, reps)
         k1 = time_ms(kern, reps)
+        s1 = s2 = None
+        if name == "assign_only_pass" and streamed is not None:
+            s1 = time_ms(streamed, reps)
+            s2 = time_ms(streamed, reps)
         k2 = time_ms(kern, reps)
         p2 = time_ms(plain, reps)
         lib_ms = time_ms(library, reps) if library else None
         out[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
                      "library_ms": lib_ms, "library": label,
                      "bound_ms": bnd["ms"], "bound_by": bnd["by"]}
-        print("%s time %s %dx%d k=%d %s: kernel %.4f ms (%.4f/%.4f), plain "
-              "%.4f ms (%.4f/%.4f), library %s, bound %.4f ms (%s; %.4g "
-              "bytes, %s)"
+        if name == "assign_only_pass":
+            out[name]["route"] = ("persistent" if route == K.ROUTE_PERSISTENT
+                                  else "streamed")
+        if s1 is not None:
+            out[name]["streamed_ms"] = (s1 + s2) / 2
+        print("%s time %s %dx%d k=%d %s: kernel %.4f ms (%.4f/%.4f)%s, "
+              "plain %.4f ms (%.4f/%.4f), library %s, bound %.4f ms (%s; "
+              "%.4g bytes, %s)"
               % (tag, name, n, f, k, name_dt, out[name]["ms"], k1, k2,
+                 "" if s1 is None else
+                 " on the persistent route, the streamed route %.4f ms "
+                 "(%.4f/%.4f)" % ((s1 + s2) / 2, s1, s2),
                  out[name]["plain_ms"], p1, p2,
                  "%.4f ms (%s)" % (lib_ms, label) if lib_ms else "none",
                  bnd["ms"], bnd["by"], bnd["bytes"],
@@ -1891,7 +1938,13 @@ def main() -> int:
         log = buf.getvalue()
         print(log, end="", flush=True)
         for name, count in launches.items():
-            if count == 0:
+            # B2's persistent route takes the bf16 run's launches, and only
+            # those
+            if name == "assign_persistent":
+                if (count > 0) != ("bf16" in label):
+                    raise AssertionError("%s: %d launches on B2's "
+                                         "persistent route" % (label, count))
+            elif count == 0:
                 raise AssertionError("%s: %s never launched" % (label, name))
             total[name] += count
         data = xb if "bf16" in label else x
@@ -1942,7 +1995,7 @@ def main() -> int:
     paths.append(("spherical AFK-MC2", spherical_phase(tag)))
     for label, *counts in paths:
         for launches in counts:
-            require_launched(label, launches, K.LAUNCHES)
+            require_launched(label, launches, ENTRY_LAUNCHES)
             for name in total:
                 total[name] += launches.get(name, 0)
     check_small_yinyang_agreement()
@@ -3217,6 +3270,12 @@ def rows_past_offsets(n, f, count=1 << 16, edge=256):
                       torch.arange(first, n, max(1, (n - first) // half)),
                       torch.arange(max(0, n - edge), n)])
     return torch.unique(rows).cuda()
+
+
+#: the Lloyd entries' launch counts, each of which every k-means path
+#: raises (``assign_persistent`` counts only bf16 rows' B2 launches)
+ENTRY_LAUNCHES = tuple(name for name in K.LAUNCHES
+                       if name != "assign_persistent")
 
 
 def require_launched(label, launches, names):

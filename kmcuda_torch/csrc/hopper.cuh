@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels:
 // 128-byte-swizzled K-major tiles in shared memory filled by cp.async (or
 // plain loads), their wgmma descriptors, the wgmma instructions, fences and
-// the TF32 split of 3xTF32 products.  Used by assign.cu (kmt_assign) and
-// knn_walk.cu (kmt_knn_walk).
+// the TF32 split of 3xTF32 products; for the warp-specialised kernels, TMA
+// tile loads, mbarriers and named barriers.  Used by assign.cu
+// (kmt_assign) and knn_walk.cu (kmt_knn_walk).
 //
 // Shared-memory layout and wgmma descriptors.  A tile of R rows is stored as
 // R rows of 128 bytes (one feature chunk), with the 128-byte swizzle that
@@ -109,6 +110,32 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+#define KMT_O8(i)                                                     \
+  "=f"(d[i]), "=f"(d[i + 1]), "=f"(d[i + 2]), "=f"(d[i + 3]),         \
+      "=f"(d[i + 4]), "=f"(d[i + 5]), "=f"(d[i + 6]), "=f"(d[i + 7])
+
+// d = A . B^T for a 64 x 128 tile, one k-step of 16 bf16: the first of a
+// chain.  d's old value is no operand, so the compiler need not hold it
+// (wgmma_bf16 with scale_d = 0 computes the same).
+__device__ __forceinline__ void wgmma_bf16_first(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : KMT_O8(0), KMT_O8(8), KMT_O8(16), KMT_O8(24), KMT_O8(32),
+        KMT_O8(40), KMT_O8(48), KMT_O8(56)
+      : "l"(da), "l"(db));
+}
+
+#undef KMT_O8
+
 // d (+)= A . B^T for a 64 x 128 tile, one k-step of 8 tf32.
 __device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da,
                                            uint64_t db, int scale_d) {
@@ -209,6 +236,94 @@ __device__ __forceinline__ void load_tile(uint8_t *tile,
       *reinterpret_cast<uint4 *>(tile + off) = w.v;
     }
   }
+}
+
+// mbarriers in shared memory.  A full barrier counts one arrival (the
+// producer's expect_tx) and the bytes of the TMA loads that complete on it;
+// an empty barrier one arrival per consumer.  A waiter passes once the phase
+// of the given parity has completed: on a fresh barrier, parity 1 passes at
+// once (the producer's first wait on an empty slot) and parity 0 waits.
+__device__ __forceinline__ void mbar_init(uint64_t *bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+// makes the barriers' initialisation visible to the async proxy (TMA)
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t *bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// arrives and adds `bytes` to the transactions the current phase awaits
+__device__ __forceinline__ void mbar_expect_tx(uint64_t *bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// one bounded wait (the hardware's own time limit): true once the phase of
+// the given parity has completed
+__device__ __forceinline__ bool mbar_try_wait(uint64_t *bar,
+                                              uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done;
+}
+
+// A wait that lasts 2^34 cycles (seconds) traps: a pipeline fault fails
+// the launch instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t *bar, uint32_t parity) {
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 34)) __trap();
+}
+
+// mbar_wait's test without the wait
+__device__ __forceinline__ bool mbar_test(uint64_t *bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done;
+}
+
+// TMA: the box of a 2-D tensor map at (c0 innermost, c1) into shared memory
+// at `dst` (1024-byte aligned for the 128-byte swizzle), completing on
+// `bar`.  Elements past the tensor's edge arrive as zeros and count toward
+// the barrier's bytes like the others.
+__device__ __forceinline__ void tma_load_2d(void *dst, const void *map,
+                                            uint64_t *bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(map), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// a barrier of `threads` threads (a multiple of 32) under id `id` (1-15;
+// 0 is __syncthreads')
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// arrives at named barrier `id` without waiting: the barrier completes when
+// `threads` threads have arrived or synced
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // The fp32 units this thread loaded (load_tile<float, ROWS, NT>'s

@@ -30,7 +30,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int64
 #: C entry -> argtypes (pointers and the stream as void*, sizes as int64)
 _SIGNATURES = {
-    "kmt_assign": [_P] * 10 + [_I] * 5 + [_P],
+    "kmt_assign": [_P] * 10 + [_I] * 6 + [_P],
     "kmt_segment_sum": [_P] * 6 + [_I] * 9 + [_P],
     "kmt_delta_sum": [_P] * 8 + [_I] * 10 + [_P],
     "kmt_knn_walk": [_P] * 17 + [_I] * 12 + [_P],

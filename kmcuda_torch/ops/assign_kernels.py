@@ -33,8 +33,17 @@ from kmcuda_torch.ops.assign import pad_clusters, rescore_table
 from kmcuda_torch.utils import profiling as P
 from kmcuda_torch.utils.errors import KMTPUInvalidArguments
 
-#: kernel launches per entry; a wrapper adds one where it launches
-LAUNCHES = {"fused_lloyd_pass": 0, "assign_only_pass": 0, "delta_sum": 0}
+#: kernel launches per entry; a wrapper adds one where it launches.
+#: ``assign_persistent``: the ``kmt_assign`` launches of either entry that
+#: took the persistent route
+LAUNCHES = {"fused_lloyd_pass": 0, "assign_only_pass": 0, "delta_sum": 0,
+            "assign_persistent": 0}
+
+#: ``kmt_assign``'s routes (``csrc/assign.cu``): the streamed kernel, for
+#: every input, and the persistent one, for bf16 rows of 64 to 256
+#: features, 16-byte aligned
+ROUTE_STREAMED = 0
+ROUTE_PERSISTENT = 1
 
 #: the plain twins score this many (row, centroid) pairs per chunk
 REFERENCE_CHUNK_ELEMENTS = 1 << 26
@@ -150,10 +159,34 @@ def tf32_split(v: torch.Tensor) -> tuple:
     return hi, tf32_round(v - hi)
 
 
+def assign_route(dtype, f: int, aligned: bool) -> int:
+    """The ``kmt_assign`` route for x of ``dtype`` with f features whose
+    first row is 16-byte aligned (``aligned``): the persistent kernel for
+    bf16 at 64 <= f <= 256 with every row 16-byte aligned (f a multiple of
+    8), whose resident x tile bounds f; the streamed kernel otherwise.
+    Both give the same bits where both run."""
+    if (dtype == torch.bfloat16 and 64 <= f <= 256 and f % 8 == 0
+            and aligned):
+        return ROUTE_PERSISTENT
+    return ROUTE_STREAMED
+
+
 def _launch_assign(lib, x, valid, prev_assign, centroids, k, metric,
-                   stream):
+                   stream, route=None):
+    """``kmt_assign`` on the route :func:`assign_route` picks, or on
+    ``route`` where a check on the card forces one."""
     n, f = x.shape
+    if route is None:
+        route = assign_route(x.dtype, f, x.data_ptr() % 16 == 0)
     panel, c_sq = pad_clusters(centroids, x.dtype)
+    if route == ROUTE_PERSISTENT:
+        # the persistent kernel reads the scores' bias a whole 128-column
+        # tile at a time, the pad's entries scoring no column: |c|^2 (L2)
+        # or zeros (cosine, the streamed kernel's literal 0)
+        c_sq = (torch.zeros((k + -k % 128,), dtype=torch.float32,
+                            device=x.device)
+                if metric == D.DistanceMetric.COSINE
+                else torch.nn.functional.pad(c_sq, (0, -k % 128)))
     # fp32 storage: the kernel's 3xTF32 products take the panel split
     panel, panel_lo = ((panel, None) if x.dtype == torch.bfloat16
                        else tf32_split(panel))
@@ -167,8 +200,11 @@ def _launch_assign(lib, x, valid, prev_assign, centroids, k, metric,
         ctab.data_ptr(), valid.data_ptr(), prev_assign.data_ptr(),
         aid.data_ptr(), best.data_ptr(), changed.data_ptr(), n, f, k,
         int(x.dtype == torch.bfloat16),
-        int(metric == D.DistanceMetric.COSINE), stream)
+        int(metric == D.DistanceMetric.COSINE), route, stream)
     _build.check(lib, code, "kmt_assign")
+    if route == ROUTE_PERSISTENT:
+        LAUNCHES["assign_persistent"] += 1
+        P.count("assign.persistent", 1)
     return aid, best, changed[0]
 
 

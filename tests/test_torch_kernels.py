@@ -150,6 +150,92 @@ def test_assign_only_rows_are_independent(cuda, dtype):
     assert int(ch2) == int((a[rows] != prev[rows]).sum())
 
 
+def _card_problem(n, f, k, metric, ragged, seed=0):
+    """``_problem`` made on the card (the 1M-row cases), bf16 x; ``ragged``
+    zeroes and invalidates 1000 rows and sets centroid 7 to NaN."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand(n, f, generator=g, device="cuda")
+    if metric == D.DistanceMetric.COSINE:
+        x = x / x.norm(dim=1, keepdim=True)
+    c = x[torch.randperm(n, generator=g, device="cuda")[:k]] \
+        + 0.01 * torch.rand(k, f, generator=g, device="cuda")
+    valid = torch.ones(n, dtype=torch.bool, device="cuda")
+    if ragged:
+        rows = torch.randperm(n, generator=g, device="cuda")[:1000]
+        x[rows] = 0
+        valid[rows] = False
+        c[7] = float("nan")
+    prev = torch.randint(0, k + 1, (n,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    return x.to(torch.bfloat16).contiguous(), valid, prev, c
+
+
+def _routed(x, valid, prev, c, k, metric, route):
+    """``kmt_assign`` forced onto ``route``, synchronized."""
+    out = K._launch_assign(_build.library(), x, valid, prev, c, k, metric,
+                           torch.cuda.current_stream().cuda_stream,
+                           route=route)
+    torch.cuda.synchronize()
+    return out
+
+
+def _assert_bitwise(got, want):
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    assert int(got[2]) == int(want[2])
+
+
+# (n, f, k, metric, ragged): the persistent route against the streamed one
+# at the main-path size, 1M x 256 x 1024 bf16, one change at a time: a
+# ragged last row tile, k past a centroid tile's edge, one 64-feature chunk,
+# a chunk zero-filled past f, cosine, invalid rows with a NaN centroid
+ROUTE_CASES = [
+    (1_000_037, 256, 1024, "L2", False),
+    (1_000_000, 256, 1000, "L2", False),
+    (1_000_000, 64, 1024, "L2", False),
+    (1_000_000, 200, 1024, "L2", False),
+    (1_000_000, 256, 1024, "cos", False),
+    (1_000_000, 256, 1024, "L2", True),
+]
+
+
+@pytest.mark.parametrize("n,f,k,metric,ragged", ROUTE_CASES)
+def test_persistent_route_is_bitwise_the_streamed(cuda, n, f, k, metric,
+                                                  ragged):
+    """``aid``, ``best`` and ``changed`` of the persistent kernel are the
+    streamed kernel's, bit for bit."""
+    metric = D.DistanceMetric.COSINE if metric == "cos" \
+        else D.DistanceMetric.L2
+    assert K.assign_route(torch.bfloat16, f, True) == K.ROUTE_PERSISTENT
+    x, valid, prev, c = _card_problem(n, f, k, metric, ragged)
+    want = _routed(x, valid, prev, c, k, metric, K.ROUTE_STREAMED)
+    got = _routed(x, valid, prev, c, k, metric, K.ROUTE_PERSISTENT)
+    _assert_bitwise(got, want)
+    if ragged:
+        assert bool((got[0][~valid] == k).all())
+
+
+def test_persistent_route_rows_are_independent(cuda):
+    """The persistent kernel on a gathered, sorted 10% of the rows gives
+    them bitwise what it gives them over all 1M rows (and what the
+    streamed kernel gives them)."""
+    n, f, k = 1_000_000, 256, 1024
+    metric = D.DistanceMetric.L2
+    x, valid, prev, c = _card_problem(n, f, k, metric, True, seed=1)
+    full = _routed(x, valid, prev, c, k, metric, K.ROUTE_PERSISTENT)
+    _assert_bitwise(full, _routed(x, valid, prev, c, k, metric,
+                                  K.ROUTE_STREAMED))
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rows = torch.sort(torch.randperm(n, generator=g, device="cuda")
+                      [:n // 10]).values
+    sub = _routed(x[rows], valid[rows], prev[rows], c, k, metric,
+                  K.ROUTE_PERSISTENT)
+    assert torch.equal(sub[0], full[0][rows])
+    assert torch.equal(sub[1].view(torch.int32),
+                       full[1][rows].view(torch.int32))
+    assert int(sub[2]) == int((full[0][rows] != prev[rows]).sum())
+
+
 def _segment_sum(x, aid, k):
     """``kmt_segment_sum`` alone (B1's second half), synchronized."""
     lib = _build.library()
