@@ -15,9 +15,18 @@ card from the seed, one warm call of the cell's call), then the window
 ``traced_calls`` calls under ``torch.profiler``), then the judgement of a
 sample of the window's results against the plain references, then the
 last line.  Every call draws its own seed from the run's seed.
+
+A cell's ``chips`` cards are cards 0 to chips - 1.  On one card the data
+lives on it and the call names no device.  Over several, the data is a
+tensor in the host's pinned memory, which the call cuts into one row
+shard a card (``device`` = the mask of the cell's cards), as kmcuda takes
+a corpus larger than a card; the peak is the fullest card's, the busy
+time each card's, averaged over them, and the references judge row parts
+on the cards.
 """
 
 import contextlib
+import gc
 import importlib.util
 import io
 import json
@@ -29,12 +38,15 @@ import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 #: top-level module names that no run may load
 FORBIDDEN = ("jax", "jaxlib", "flax", "kmcuda_tpu")
 #: the lower precision of a configuration's stated one (the control)
 LOWER = {"float32": "tf32", "bfloat16": "fp8"}
+#: the numbers that judge a k-means call's centroids against the means
+MEAN_NUMBERS = ("mean_gap", "mean_off_rounding")
 ITERATION = re.compile(r"^iteration (\d+): (\d+) reassignments$")
 EXAMINED = re.compile(r"^calculated ([0-9.]+) of all the distances$")
 #: rows of data drawn in one call of the generator
@@ -132,6 +144,52 @@ class Program:
         return nbr, lines
 
 
+class StepControl(Program):
+    """The control of a cell over several cards, where the whole reference
+    k-means in the lower precision is not run: the program's call, with
+    the assignment it returns computed again by the reference in
+    ``precision`` against the centroids it returns, on ``devices``: the
+    assignment as a lower-precision assignment pass would make it.  Only
+    ``assign_gap`` reads that pass; the numbers that set the foreign
+    assignment beside the program's centroids and iteration lines (the
+    means, the churn, the stop) read the swap itself, not a precision."""
+
+    def __init__(self, precision: str, devices):
+        super().__init__()
+        self.precision, self.devices = precision, list(devices)
+
+    def kmeans(self, x, k, **kw):
+        import torch
+        from kmbench.reference import kmeans as RK
+        c, a, lines = super().kmeans(x, k, **kw)
+        ps = samples_on(x, self.devices)
+        got = RK.map_parts(lambda s, xs: RK.assign(
+            xs, c.to(xs.device), self.precision)[0].to(a.device, a.dtype),
+            RK.parts(ps))
+        del ps
+        return c, torch.cat(got), lines
+
+
+def control_program(cell, devices, precision=None):
+    """The control of ``cell`` in ``precision`` (by default the one below
+    the configuration's): the plain references put in the program's place
+    on one device; over several cards :class:`StepControl`."""
+    prec = precision or LOWER[cell.config["dtype"]]
+    if len(devices) > 1:
+        return StepControl(prec, devices)
+    return ReferenceProgram(prec)
+
+
+def samples_on(x, devices):
+    """The samples as the references take them: ``x`` itself on one
+    device; over several, its rows cut into one part a device, copied
+    there."""
+    if len(devices) == 1:
+        return x
+    from kmbench.reference import kmeans as RK
+    return RK.shard(x, devices)
+
+
 class ReferenceProgram:
     """The plain references put in the program's place, computed in
     ``precision``: with a precision below the configuration's, the control
@@ -177,11 +235,15 @@ def examined_fraction(lines):
 
 # --- data ------------------------------------------------------------------
 
-def make_samples(config: dict, seed: int, device):
+def make_samples(config: dict, seed: int, device, host: bool = False,
+                 out=None):
     """The configuration's samples, drawn on ``device`` from ``seed`` by a
     generator there, in fp32 a block of rows a call, then stored in the
-    configuration's dtype.  ``data`` (the generators of the program's
-    ``bench_torch.py``, copied):
+    configuration's dtype: on ``device``, or with ``host`` each block
+    copied into one host tensor, the same values: ``out`` (a tensor of the
+    samples' shape and dtype, filled again), or a new one, page-locked
+    where ``device`` is a card (:func:`page_locked`).  ``data`` (the
+    generators of the program's ``bench_torch.py``, copied):
 
     - ``uniform``: U(0, 1) on every feature;
     - ``blobs``: ``blob_centers`` centers U(0, 1) * ``blob_spread``, each
@@ -199,16 +261,67 @@ def make_samples(config: dict, seed: int, device):
     if kind == "blobs":
         centers = torch.rand((int(config["blob_centers"]), f), generator=g,
                              device=device) * float(config["blob_spread"])
-    x = torch.empty((n, f), dtype=dtype, device=device)
+    if host:
+        x = out if out is not None else (
+            page_locked((n, f), dtype) if device.type == "cuda"
+            else torch.empty((n, f), dtype=dtype))
+    else:
+        x = torch.empty((n, f), dtype=dtype, device=device)
     for s in range(0, n, DATA_BLOCK_ROWS):
         rows = min(DATA_BLOCK_ROWS, n - s)
         if kind == "uniform":
-            x[s:s + rows] = torch.rand((rows, f), generator=g, device=device)
+            block = torch.rand((rows, f), generator=g, device=device)
         else:
             which = torch.randint(0, centers.shape[0], (rows,), generator=g,
                                   device=device)
-            x[s:s + rows] = centers[which] + 0.5 * torch.randn(
+            block = centers[which] + 0.5 * torch.randn(
                 (rows, f), generator=g, device=device)
+        if host:
+            x[s:s + rows].copy_(block.to(dtype))
+        else:
+            x[s:s + rows] = block
+    return x
+
+
+def cell_samples(cell: Cell, seed: int, devices, out=None):
+    """The cell's samples of ``seed``: on its one device, or, over several
+    cards, in host memory (``out`` filled again where given)."""
+    return make_samples(cell.config, seed, devices[0],
+                        host=len(devices) > 1, out=out)
+
+
+#: cudaHostRegisterPortable: page-locked for every card's context
+REGISTER_PORTABLE = 1
+#: threads that first touch a host tensor's pages
+TOUCH_THREADS = 8
+
+
+def page_locked(shape, dtype):
+    """A host tensor page-locked for the rest of the process by one
+    ``cudaHostRegister`` at its own size (torch's pinned allocator rounds
+    a request up to a power of two: 102.4 GB to 137 GB; two registrations
+    side by side fail the copies that cross them).  Its pages are touched
+    first, by :data:`TOUCH_THREADS` threads: locking pages that are there
+    runs ≈3× faster than locking and zeroing new ones."""
+    import torch
+
+    t = time.perf_counter()
+    x = torch.empty(shape, dtype=dtype)
+    flat = x.view(-1).view(torch.uint8)
+    step = -(-flat.numel() // TOUCH_THREADS)
+    with ThreadPoolExecutor(TOUCH_THREADS) as ex:
+        list(ex.map(lambda s: flat[s:s + step].zero_(),
+                    range(0, flat.numel(), step)))
+    t1 = time.perf_counter()
+    size = flat.numel()
+    rc = torch.cuda.cudart().cudaHostRegister(x.data_ptr(), size,
+                                              REGISTER_PORTABLE)
+    rc = int(getattr(rc, "value", rc))
+    if rc:
+        raise BenchError("cudaHostRegister of %.1f GB failed: %r"
+                         % (size / 1e9, rc))
+    log("host samples: %.1f GB, pages touched in %.2f s, locked in %.2f s"
+        % (size / 1e9, t1 - t, time.perf_counter() - t1))
     return x
 
 
@@ -232,19 +345,26 @@ class Call(NamedTuple):
 class Runner:
     """Makes the cell's call on its data with the program given."""
 
-    def __init__(self, cell: Cell, program, x, device):
-        self.cell, self.program, self.x, self.device = cell, program, x, device
+    def __init__(self, cell: Cell, program, x, devices):
+        self.cell, self.program, self.x = cell, program, x
+        self.devices = list(devices)
         cfg, tr = cell.config, cell.traffic
         self.k = int(cfg["clusters"])
         self.kind = tr["call"]
         self.kw = dict(tolerance=cfg["tolerance"], metric=cfg["metric"])
         self.kw.update(tr.get("kwargs", {}))
+        if len(self.devices) > 1:
+            if self.kind != "kmeans":
+                raise BenchError("a %s cell over several cards has no "
+                                 "judgement yet" % self.kind)
+            self.kw["device"] = (1 << len(self.devices)) - 1
         self.knn_start = None
 
     def sync(self):
         import torch
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for d in dict.fromkeys(self.devices):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def prepare(self, seed: int):
         """Set-up that the mix asks for before its calls: for a kNN mix,
@@ -336,12 +456,18 @@ def judge(runner: Runner, calls: list, more_seeds=()) -> dict:
     A mix with ``judged_starts`` has that many calls stopped after one
     iteration, for their k-means++ starts (the window's calls' seeds, then
     ``more_seeds``), and judges the weighting of their picks together; the
-    rows of the first alone (the longest call's) are judged one by one."""
+    rows of the first alone (the longest call's) are judged one by one.
+
+    The means are judged by the numbers of them that the cell's limits
+    name (:data:`MEAN_NUMBERS`; ``mean_gap`` where they name none), and
+    ``init_shard_share`` (the first start's picks over the cards' row
+    parts) where they name it."""
     import torch
     from kmbench.reference import kmeans as RK
     from kmbench.reference import knn as RN
 
     x = runner.x
+    jdev = runner.devices[0]
     nums = {"failed_calls": sum(1 for c in calls if c.error)}
     kept = [c for c in calls if c.out is not None and not c.error]
     if not kept:
@@ -355,17 +481,21 @@ def judge(runner: Runner, calls: list, more_seeds=()) -> dict:
             gap, bad = max(gap, g), bad + b
         nums["knn_gap"], nums["bad_ids"] = gap, bad
         return nums
+    ref = samples_on(x, runner.devices)
     gap, bad = 0.0, 0
     for c in kept:
-        g, b = RK.assign_gap(x, c.out[0].to(x.device), c.out[1].to(x.device))
+        g, b = RK.assign_gap(ref, c.out[0], c.out[1])
         gap, bad = max(gap, g), bad + b
     longest = max(kept, key=lambda c: iterations(c.lines))
     t = iterations(longest.lines)
     inf = float("inf")
-    nums.update(mean_gap=inf, trajectory_differs=1, init_off_rows=inf,
-                stop_early=inf, churn_differs=inf)
+    limits = runner.cell.limits
+    mean_names = [m for m in MEAN_NUMBERS if m in limits] or ["mean_gap"]
+    nums.update({m: inf for m in mean_names})
+    nums.update(trajectory_differs=1, init_off_rows=inf, stop_early=inf,
+                churn_differs=inf)
     k, n = runner.k, x.shape[0]
-    a_prev = torch.full((n,), k, dtype=torch.int64, device=x.device)
+    a_prev = torch.full((n,), k, dtype=torch.int64, device=jdev)
     if t >= 2:
         try:
             (cp, ap), lines = runner.call(longest.seed, max_iterations=t - 1)
@@ -374,18 +504,19 @@ def judge(runner: Runner, calls: list, more_seeds=()) -> dict:
                 + traceback.format_exc())
             nums["failed_calls"] += 1
             return dict(nums, assign_gap=inf, bad_ids=bad)
-        g, b = RK.assign_gap(x, cp, ap)
+        g, b = RK.assign_gap(ref, cp, ap)
         gap, bad = max(gap, g), bad + b
-        nums["mean_gap"] = RK.mean_gap(x, longest.out[0].to(x.device), ap)
+        got = RK.mean_numbers(ref, longest.out[0], ap)
+        nums.update({m: got[m] for m in mean_names})
         mine = [l for l in lines if ITERATION.match(l)]
         full = [l for l in longest.lines if ITERATION.match(l)][:t - 1]
         nums["trajectory_differs"] = (sum(a != b for a, b in zip(mine, full))
                                       + abs(len(mine) - len(full)))
-        a_prev = ap.to(x.device).long()
+        a_prev = ap.to(jdev).long()
         del cp
     # the stop rule, on the last step's churn counted here
     counts = reassignments(longest.lines)
-    churn = int((longest.out[1].to(x.device).long() != a_prev).sum())
+    churn = int((longest.out[1].to(jdev).long() != a_prev).sum())
     del a_prev
     nums["churn_differs"] = abs(churn - counts[-1]) if counts else inf
     nums["stop_early"] = RK.stop_early(
@@ -407,11 +538,13 @@ def judge(runner: Runner, calls: list, more_seeds=()) -> dict:
                 + traceback.format_exc())
             nums["failed_calls"] += 1
             return dict(nums, assign_gap=inf, bad_ids=bad)
-        r, o = RK.start_rows(x, c0)
+        r, o = RK.start_rows(ref, c0)
         if i == 0:
-            g, b = RK.assign_gap(x, c0, a0)
+            g, b = RK.assign_gap(ref, c0, a0)
             gap, bad = max(gap, g), bad + b
             nums["init_off_rows"] = o
+            if "init_shard_share" in limits:
+                nums["init_shard_share"] = RK.shard_share(ref, r)
         else:
             off += o > 0
         rows.append(r)
@@ -424,7 +557,7 @@ def judge(runner: Runner, calls: list, more_seeds=()) -> dict:
         log("k-means++ starts with a row off or picked twice: %d of the "
             "%d further starts" % (off, len(starts) - 1))
         nums["init_weight_shortfall"] = RK.weight_shortfall(
-            x, torch.stack(rows))
+            ref, torch.stack(rows))
     return nums
 
 
@@ -479,13 +612,21 @@ def parse(argv):
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, program,
-             device, t0: float, warm: bool = True) -> dict:
-    """One run; returns the result's fields (``correct`` ... ``checks``)."""
+             device, t0: float, warm: bool = True, x=None) -> dict:
+    """One run; returns the result's fields (``correct`` ... ``checks``).
+    ``device``: the cell's one device, or a list of its cards (the first
+    makes the data).  ``x``: the samples of ``seed``, made already
+    (:func:`cell_samples`), else made here."""
     import torch
 
+    devices = list(device) if isinstance(device, (list, tuple)) else [device]
+    device = devices[0]
+    cards = [d for d in dict.fromkeys(devices) if d.type == "cuda"]
     rng = random.Random(seed ^ 0x5EED)
-    x = make_samples(cell.config, seed, device)
-    runner = Runner(cell, program, x, device)
+    if x is None:
+        x = cell_samples(cell, seed, devices)
+    log("samples made by %.2f s of set-up" % (time.perf_counter() - t0))
+    runner = Runner(cell, program, x, devices)
     seeds = call_seeds(seed)
     prep_lines = runner.prepare(next(seeds))
     if prep_lines:
@@ -495,10 +636,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, program,
         if w.error:
             log("warm call failed:\n" + w.error)
     cuda = device.type == "cuda"
-    if cuda:
-        torch.cuda.synchronize(device)
-        torch.cuda.reset_peak_memory_stats(device)
+    for d in cards:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
     setup_s = time.perf_counter() - t0
+    log("set-up %.2f s" % setup_s)
     judged = int(cell.traffic.get("judged_calls", 1))
     result = {}
     if not trace:
@@ -514,7 +656,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, program,
                            count=int(cell.traffic["traced_calls"]))
         dev_ev, host_ev = TR.events(prof)
         del prof
-    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    peaks = [torch.cuda.max_memory_allocated(d) if d.type == "cuda" else 0
+             for d in devices]
+    peak = max(peaks)
     ok_calls = [c for c in calls if not c.error]
     walls = sorted(c.wall for c in ok_calls)
     its = [iterations(c.lines) for c in ok_calls]
@@ -535,12 +679,23 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, program,
     device_info = {
         "platform": "gpu" if cuda else device.type,
         "kind": torch.cuda.get_device_name(device) if cuda else device.type,
-        "count": 1, "memory_peak_bytes": int(peak)}
+        "count": len(devices), "memory_peak_bytes": int(peak)}
+    if len(devices) > 1:
+        device_info["memory_peak_bytes_per_card"] = [int(p) for p in peaks]
     if trace:
         spans = [(e.start, e.end) for e in host_ev if e.name == TR.CALL_SPAN]
         window_s = sum(b - a for a, b in spans) / 1e9
-        busy_s = TR.busy_ns(dev_ev, spans) / 1e9
+        busy_s = TR.busy_ns(dev_ev, spans, len(devices)) / 1e9
         device_info["busy_s"], device_info["window_s"] = busy_s, window_s
+        if len(devices) > 1:
+            per = TR.busy_ns_per_card(dev_ev, spans)
+            device_info["busy_s_per_card"] = [
+                per.get(d.index, 0) / 1e9 for d in cards]
+            for d, ev in TR.by_card(dev_ev).items():
+                log("card %d: busy %.4f of %.4f s; %s" % (
+                    d, per[d] / 1e9, window_s, ", ".join(
+                        "%s %.4f s" % (nm, t)
+                        for nm, t in TR.device_ops(ev, spans, top=6))))
         run = TraceRun(cell, [c for c in calls], spans, dev_ev, host_ev,
                        window_s, busy_s)
         for m in cell.per_layer:
@@ -550,13 +705,16 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, program,
             else:
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
         result["breakdown"] = {
-            "device_ops": TR.device_ops(dev_ev, spans),
-            "idle_gaps": TR.idle_gaps(dev_ev, host_ev, spans)}
+            "device_ops": TR.device_ops(dev_ev, spans, cards=len(devices)),
+            "idle_gaps": TR.idle_gaps(dev_ev, host_ev, spans,
+                                      cards=len(devices))}
         del dev_ev, host_ev
     # the program's state goes before the references run
-    if cuda:
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
+    gc.collect()
+    for d in cards:
+        torch.cuda.synchronize(d)
+        with torch.cuda.device(d):
+            torch.cuda.empty_cache()
     tj = time.perf_counter()
     nums = judge(runner, calls, seeds)
     log("judged %d calls in %.2f s" % (nums.get("judged_calls", 0),
@@ -600,8 +758,10 @@ class TraceRun(NamedTuple):
 def main(argv, root: pathlib.Path, t0: float, program=None,
          device=None) -> int:
     """Runs one cell; prints the result as the last line of stdout.
-    ``program`` and ``device`` default to kmcuda_torch on cuda:0, and a
-    run with no card fails."""
+    ``program`` and ``device`` default to kmcuda_torch on the cell's cards
+    (cuda:0 ...), and a run with no card, or fewer than the cell asks
+    for, fails.  A ``device`` given stands for each of the cell's cards
+    (a test's logical devices)."""
     args = parse(argv)
     try:
         cell = find_cell(root, args.workload)
@@ -613,7 +773,10 @@ def main(argv, root: pathlib.Path, t0: float, program=None,
             if torch.cuda.device_count() < cell.chips:
                 raise BenchError("the cell asks for %d cards, %d present"
                                  % (cell.chips, torch.cuda.device_count()))
-            device = torch.device("cuda", 0)
+            devices = [torch.device("cuda", i) for i in range(cell.chips)]
+        else:
+            devices = [device] * cell.chips
+        device = devices[0]
         if program is None:
             program = Program()
             import kmcuda_torch
@@ -622,7 +785,7 @@ def main(argv, root: pathlib.Path, t0: float, program=None,
                 raise BenchError("kmcuda_torch comes from %s, outside the "
                                  "checkout %s" % (where, root))
         res = run_cell(cell, args.seed, args.seconds, bool(args.trace),
-                       program, device, t0)
+                       program, devices, t0)
     except BenchError as e:
         log("error: %s" % e)
         return 2

@@ -132,3 +132,20 @@ def walk_ops_bound(examined: int, f: int, dtype_name: str) -> dict:
     report; so a share of it is never above a share of the whole bound."""
     kind = "bf16" if dtype_name == "bfloat16" else "fp32 product"
     return bound(0.0, {kind: 2.0 * f * examined})
+
+
+#: the host link of one card, bytes/s a direction: PCIe Gen5 x16, 32 GT/s
+#: on 16 lanes, before its 128b/130b coding (the H100 SXM's host link;
+#: ``nvidia-smi -q`` reads the link as N/A in the benchmark's sandboxed
+#: machines, where one card copies 45-55 GB/s from page-locked memory,
+#: past Gen4 x16's 32 GB/s)
+HOST_LINK_BYTES_PER_S = 32e9 * 16 / 8
+
+
+def host_copy_bound(n: int, f: int, dtype_name: str, cards: int) -> dict:
+    """Samples (n, f) stored as ``dtype_name`` copied from host memory onto
+    ``cards`` cards, one row shard a card, each over its own link at
+    :data:`HOST_LINK_BYTES_PER_S`: every byte crosses a link once."""
+    nbytes = float(n) * f * _size(dtype_name)
+    return {"ms": 1e3 * nbytes / (cards * HOST_LINK_BYTES_PER_S),
+            "by": "host link", "bytes": nbytes, "ops": {}}

@@ -46,9 +46,10 @@ def spans(run, name: str) -> list:
                                       for s0, s1 in run.spans)]
 
 
-def idle_ns(run, intervals) -> int:
+def idle_ns(run, intervals):
     """Nanoseconds of ``intervals`` (merged where they overlap) in which no
-    operation ran on the device."""
+    operation ran on the device: each card's, the mean over the cell's
+    cards."""
     merged = []
     for start, end in sorted(intervals):
         if merged and start <= merged[-1][1]:
@@ -56,7 +57,7 @@ def idle_ns(run, intervals) -> int:
         else:
             merged.append((start, end))
     total = sum(end - start for start, end in merged)
-    return total - T.busy_ns(run.device_events, merged)
+    return total - T.busy_ns(run.device_events, merged, run.cell.chips)
 
 
 def started_in(run, t0: int, t1: int) -> list:

@@ -44,12 +44,30 @@ def small_tree(tmp: pathlib.Path, samples=4000, features=None, clusters=64,
     return tmp
 
 
+@contextlib.contextmanager
+def cpu_cards():
+    """The program's device mask read as that many logical CPU devices (a
+    cell over several cards runs on the CPU as row shards there)."""
+    import torch
+    from kmcuda_torch.parallel import devices as D
+
+    real = D.select_devices
+    D.select_devices = lambda mask, logger=None: (
+        [torch.device("cpu")] * bin(int(mask)).count("1"))
+    try:
+        yield
+    finally:
+        D.select_devices = real
+
+
 def run(root, workload, seed=7, seconds=0.5, trace=0, program=None):
-    """(exit code, last line as a dict or None, stderr) of one CPU run."""
+    """(exit code, last line as a dict or None, stderr) of one CPU run; a
+    cell over several cards runs on as many logical CPU devices."""
     import torch
 
     out, err = io.StringIO(), io.StringIO()
-    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err), \
+            cpu_cards():
         rc = H.main(["--workload", workload, "--seed", str(seed),
                      "--seconds", str(seconds), "--trace", str(trace)],
                     pathlib.Path(root), time.perf_counter(),

@@ -92,10 +92,12 @@ def test_spec_entries_and_files():
     assert len(pairs) == len(set(pairs))
     for w in SPEC["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
         bench = REPO / SPEC["paths"][0]
         assert (bench / "traffic" / (w["traffic"] + ".json")).exists()
         assert (bench / "limits" / (w["name"] + ".json")).exists()
+    four = sum(w["chips"] == 4 for w in SPEC["workloads"])
+    assert four <= max(1, len(SPEC["workloads"]) // 4)
     for m in SPEC["end_to_end"]:
         assert m["source"] in ("host_clock", "device_trace")
         assert 0.01 <= m["bound"] <= 0.25

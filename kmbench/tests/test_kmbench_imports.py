@@ -35,7 +35,8 @@ def test_no_jax_in_the_sources(path):
 @pytest.mark.parametrize("path", REFERENCE, ids=lambda p: p.name)
 def test_the_reference_imports_nothing_of_the_program(path):
     for m in _imports(path):
-        assert m.split(".")[0] in {"torch", "contextlib", "kmbench"}, m
+        assert m.split(".")[0] in {"torch", "contextlib", "concurrent",
+                                   "kmbench"}, m
         if m.split(".")[0] == "kmbench":
             assert m.startswith("kmbench.reference"), m
 

@@ -198,6 +198,9 @@ class _Kineto:
         return (torch.autograd.DeviceType.CUDA if self._cuda
                 else torch.autograd.DeviceType.CPU)
 
+    def device_index(self):
+        return 0
+
     def is_user_annotation(self):
         return self._a
 

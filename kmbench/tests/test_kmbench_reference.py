@@ -192,3 +192,82 @@ def test_data_repeats_from_the_seed(kind):
     assert torch.equal(a, b) and not torch.equal(a, c)
     if kind == "uniform":
         assert 0 <= float(a.min()) and float(a.max()) < 1
+
+
+def _judged(x, c, a, starts):
+    """Every number the judgement reads off ``x`` (a tensor or parts)."""
+    mean, counts = RK.means(x, a, c.shape[0])
+    return dict(gap=RK.assign_gap(x, c, a), mean_gap=RK.mean_gap(x, c, a),
+                off=RK.mean_off_rounding(x, c.to(torch.bfloat16), a),
+                means=mean, counts=counts, start=RK.start_rows(x, c),
+                shortfall=RK.weight_shortfall(x, starts))
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4])
+def test_parts_give_the_whole_numbers(shards, monkeypatch):
+    """Each reference of the judgement over row parts, one a device (here
+    logical CPU devices, ragged, blocks smaller than a part), equals the
+    whole tensor's up to fp64 rounding."""
+    monkeypatch.setattr(RK, "BLOCK_ENTRIES", 20 * 37)
+    x = _data(1003, 8, seed=3)
+    x[5, 2] = float("nan")
+    x[700, 0] = float("inf")
+    c, a, _ = RK.kmeans(x, 20, tolerance=0.0, seed=2, max_iterations=4)
+    a = a.clone()
+    a[11] = (a[11] + 1) % 20        # a row off its nearest centroid
+    a[12] = 25                      # an id out of range
+    starts = torch.stack([RK.kmeanspp(x, 20, torch.Generator().manual_seed(
+        s)) for s in (1, 2)])
+    ps = RK.shard(x, [torch.device("cpu")] * shards)
+    assert [s for s, _ in ps] == [i * (1003 // shards) + min(i, 1003 % shards)
+                                  for i in range(shards)]
+    torch.testing.assert_close(torch.cat([p for _, p in ps]), x, rtol=0,
+                               atol=0, equal_nan=True)
+    whole, cut = _judged(x, c, a, starts), _judged(ps, c, a, starts)
+    assert cut["gap"][1] == whole["gap"][1] == 1
+    assert cut["gap"][0] == pytest.approx(whole["gap"][0], rel=1e-12)
+    assert whole["gap"][0] > 1e-3
+    assert torch.equal(cut["counts"], whole["counts"])
+    torch.testing.assert_close(cut["means"], whole["means"], rtol=1e-12,
+                               atol=0, equal_nan=True)
+    assert cut["mean_gap"] == pytest.approx(whole["mean_gap"], rel=1e-9)
+    assert cut["off"] == whole["off"]
+    assert torch.equal(cut["start"][0], whole["start"][0])
+    assert cut["start"][1] == whole["start"][1]
+    assert cut["shortfall"] == pytest.approx(whole["shortfall"], rel=1e-9)
+    picks = starts[0]
+    assert torch.equal(RK.rows_at(ps, picks), x[picks])
+
+
+def test_mean_off_rounding_counts_entries_past_their_rounding():
+    """The fp64 means rounded to bf16 read 0, whatever the cluster size;
+    entries moved by two steps, or the means of three parts of four,
+    read those entries."""
+    x = _data(4000, 16, seed=5)
+    a = torch.from_numpy(np.random.RandomState(6).randint(0, 8, 4000))
+    mean, _ = RK.means(x, a, 8)
+    c = mean.to(torch.bfloat16)
+    assert RK.mean_off_rounding(x, c, a) == 0
+    assert RK.mean_off_rounding(x, mean.float(), a) == 0
+    stepped = c.float().clone()
+    _, e = torch.frexp(mean[2, :3])
+    stepped[2, :3] = (mean[2, :3] + torch.ldexp(torch.ones(
+        3, dtype=torch.float64), e - 7)).float()   # two bf16 steps up
+    assert RK.mean_off_rounding(x, stepped.to(torch.bfloat16), a) == 3
+    three = a.clone()
+    three[3000:] = -1                             # the last part left out
+    part, _ = RK.means(x, three, 8)
+    assert RK.mean_off_rounding(x, part.to(torch.bfloat16), a) > 8
+    emptied = a.clone()
+    emptied[emptied == 2] = 3
+    assert RK.mean_off_rounding(x, c, emptied) == float("inf")
+
+
+@pytest.mark.parametrize("shards", [1, 2, 4])
+def test_shard_share_of_picks(shards):
+    x = _data(1000, 4)
+    ps = RK.shard(x, [torch.device("cpu")] * shards)
+    even = torch.arange(0, 1000, 10)
+    assert RK.shard_share(ps, even) == pytest.approx(1.0)
+    assert RK.shard_share(ps, torch.arange(0, 1000 // shards)) == shards
+    assert RK.shard_share(x, torch.arange(10)) == 1.0

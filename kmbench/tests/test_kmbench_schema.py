@@ -37,6 +37,9 @@ def test_last_line(tree, cell, trace):
     assert res["attempted"] >= 1 and res["failed"] == 0
     dev = res["device"]
     assert {"platform", "kind", "count", "memory_peak_bytes"} <= set(dev)
+    chips = next(w["chips"] for w in SPEC["workloads"] if w["name"] == cell)
+    assert dev["count"] == chips
+    assert ("memory_peak_bytes_per_card" in dev) == (chips > 1)
     if trace:
         assert _number(dev["busy_s"]) and _number(dev["window_s"])
         for key in ("device_ops", "idle_gaps"):

@@ -2,7 +2,9 @@
 harness's own call spans, the busy share and the breakdown.
 
 Events are read in memory from the profiler's Kineto results (no trace
-file).  Device and host timestamps share one clock, in nanoseconds.
+file).  Device and host timestamps share one clock, in nanoseconds.  A
+device event keeps the index of its card: over several cards a busy or
+idle time is each card's own, averaged over the cards.
 """
 
 import bisect
@@ -17,8 +19,9 @@ PROFILER_OWN = ("Activity Buffer Request",)
 
 class Event(NamedTuple):
     name: str
-    start: int  # ns
-    end: int    # ns
+    start: int       # ns
+    end: int         # ns
+    device: int = 0  # the card's index, for a device event
 
 
 def events(prof) -> tuple:
@@ -36,7 +39,7 @@ def events(prof) -> tuple:
         ev = Event(name, start, start + e.duration_ns())
         if e.device_type() == cuda:
             if name != CALL_SPAN and not _annotation(e):
-                dev.append(ev)
+                dev.append(ev._replace(device=e.device_index()))
         elif name not in PROFILER_OWN:
             host.append(ev)
     dev.sort(key=lambda e: e.start)
@@ -89,29 +92,71 @@ def kernel_name(name: str) -> str:
     return "".join(m.groups("")) if m else name.split(" (")[0][:80]
 
 
-def busy_ns(device_events, spans) -> int:
-    """Nanoseconds inside ``spans`` in which some operation ran on the
-    device."""
-    return union_ns(clip([(e.start, e.end) for e in device_events], spans))
+def by_card(device_events) -> dict:
+    """{card index: its device events}, by index."""
+    out = {}
+    for e in device_events:
+        out.setdefault(e.device, []).append(e)
+    return dict(sorted(out.items()))
 
 
-def device_ops(device_events, spans, top=10) -> list:
+def busy_ns(device_events, spans, cards=1):
+    """Nanoseconds inside ``spans`` in which some operation ran on a card:
+    each card's own, the mean over ``cards`` cards (or over the cards that
+    ran something, where more did)."""
+    per = busy_ns_per_card(device_events, spans)
+    if len(per) <= 1 and cards <= 1:
+        return sum(per.values())
+    return sum(per.values()) / max(cards, len(per))
+
+
+def busy_ns_per_card(device_events, spans) -> dict:
+    """{card index: nanoseconds inside ``spans`` in which some operation
+    ran on that card}."""
+    return {d: union_ns(clip([(e.start, e.end) for e in ev], spans))
+            for d, ev in by_card(device_events).items()}
+
+
+def device_ops(device_events, spans, top=10, cards=1) -> list:
     """[[name, seconds], ...]: the device operations inside ``spans`` that
-    took the most time, summed by :func:`kernel_name`."""
-    by = {}
-    for start, end, name in ((max(e.start, s0), min(e.end, s1), e.name)
-                             for s0, s1 in spans for e in device_events
-                             if e.end > s0 and e.start < s1):
+    took the most time, summed by :func:`kernel_name` (and over the cards:
+    over several, a name says on how many cards it ran)."""
+    by, on = {}, {}
+    for start, end, name, dev in ((max(e.start, s0), min(e.end, s1), e.name,
+                                   e.device)
+                                  for s0, s1 in spans for e in device_events
+                                  if e.end > s0 and e.start < s1):
         key = kernel_name(name)
         by[key] = by.get(key, 0) + (end - start)
+        on.setdefault(key, set()).add(dev)
+    if cards > 1:
+        by = {"%s (%d cards)" % (k, len(on[k])): v for k, v in by.items()}
     return [[k, v / 1e9] for k, v in
             sorted(by.items(), key=lambda kv: -kv[1])[:top]]
 
 
-def idle_gaps(device_events, host_events, spans, top=10) -> list:
+def idle_gaps(device_events, host_events, spans, top=10, cards=1) -> list:
     """[[name, seconds], ...]: the device's idle time inside ``spans``,
     summed by what the host was doing at the middle of each gap (the
-    innermost host event that covers it, else ``host: no torch op``)."""
+    innermost host event that covers it, else ``host: no torch op``);
+    over several cards, each card's gaps, the mean over the cards."""
+    groups = list(by_card(device_events).values()) or [[]]
+    n = max(cards, len(groups))
+    by = {}
+    for ev in groups:
+        for key, v in _gaps_by_host(ev, host_events, spans).items():
+            by[key] = by.get(key, 0) + v
+    if n > len(groups):  # a card that ran nothing was idle throughout
+        whole = _gaps_by_host([], host_events, spans)
+        for key, v in whole.items():
+            by[key] = by.get(key, 0) + v * (n - len(groups))
+    if n > 1:
+        by = {k: v / n for k, v in by.items()}
+    return [[k, v / 1e9] for k, v in
+            sorted(by.items(), key=lambda kv: -kv[1])[:top]]
+
+
+def _gaps_by_host(device_events, host_events, spans) -> dict:
     busy = sorted(clip([(e.start, e.end) for e in device_events], spans))
     gaps = []
     for s0, s1 in spans:
@@ -137,8 +182,7 @@ def idle_gaps(device_events, host_events, spans, top=10) -> list:
                 break
         key = best or "host: no torch op"
         by[key] = by.get(key, 0) + (g1 - g0)
-    return [[k, v / 1e9] for k, v in
-            sorted(by.items(), key=lambda kv: -kv[1])[:top]]
+    return by
 
 
 def first_start(device_events, name_part: str, t0: int, t1: int):
@@ -191,30 +235,40 @@ def loop_ms_per_iteration(run, kernel="assign_kernel"):
 
 def assign_roofline(run):
     """B2 (``kmt_assign``, device kernel ``assign_kernel``) against its
-    bound: launches times the frozen ``assign_bound(n, f, k, dtype)`` over
-    the summed device time of its launches in the traced calls, in %.
-    It holds for Lloyd calls on one card, where every launch scores all n
-    rows (Yinyang's launches score a subset: its cells do not list it)."""
+    bound: launches times the frozen ``assign_bound(rows, f, k, dtype)``
+    over the summed device time of its launches in the traced calls, in
+    %.  It holds for Lloyd calls, where every launch scores all the rows
+    of its card: all n on one card; over several, card i's row shard (the
+    program's cut: n // cards rows, one more on the first n % cards).
+    Yinyang's launches score a subset: its cells do not list it."""
     from kmbench import roofline as R
 
     cfg = run.cell.config
-    launches, seconds = kernel_time(run.device_events, "assign_kernel",
-                                    run.spans)
-    if not launches or seconds <= 0:
+    n, f, k = int(cfg["samples"]), int(cfg["features"]), int(cfg["clusters"])
+    chips = run.cell.chips
+    groups = ({0: run.device_events} if chips <= 1
+              else by_card(run.device_events))
+    work, seconds = 0.0, 0.0
+    for card, ev in groups.items():
+        launches, t = kernel_time(ev, "assign_kernel", run.spans)
+        if not launches:
+            continue
+        rows = n // chips + (card < n % chips)
+        work += launches * R.assign_bound(rows, f, k, cfg["dtype"])["ms"] / 1e3
+        seconds += t
+    if not work or seconds <= 0:
         return None
-    bound_s = R.assign_bound(int(cfg["samples"]), int(cfg["features"]),
-                             int(cfg["clusters"]), cfg["dtype"])["ms"] / 1e3
-    return 100.0 * launches * bound_s / seconds
+    return 100.0 * work / seconds
 
 
 def mfu(run):
-    """The whole call's share of the card's peak, in %: the Lloyd
+    """The whole call's share of the cards' peak, in %: the Lloyd
     assignments' products, 2 n k f operations an iteration over the
     iteration lines of the traced calls, at the storage dtype's peak rate
     (frozen ``roofline.PEAK_OPS_PER_S``: bf16 tensor cores, or
-    fp32-grade products), over the calls' whole spans (init and the
-    host's time included).  It bounds what any one kernel's roofline
-    share can buy end to end."""
+    fp32-grade products) times the cell's cards, over the calls' whole
+    spans (init and the host's time included).  It bounds what any one
+    kernel's roofline share can buy end to end."""
     from kmbench import roofline as R
     from kmbench.harness import iterations
 
@@ -226,7 +280,8 @@ def mfu(run):
     kind = "bf16" if cfg["dtype"] == "bfloat16" else "fp32 product"
     ops = 2.0 * int(cfg["samples"]) * int(cfg["clusters"]) * \
         int(cfg["features"]) * its
-    return 100.0 * ops / R.PEAK_OPS_PER_S[kind] / seconds
+    return 100.0 * ops / (R.PEAK_OPS_PER_S[kind] * max(1, run.cell.chips)) \
+        / seconds
 
 
 def prepare_init_s(run):
