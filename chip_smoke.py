@@ -72,6 +72,14 @@ configuration (1,000,000 x 256 unit rows, cosine, k=1024, m=100); and
 Yinyang on a CUDA and a CPU tensor of the 13K blob fixture from one
 start.
 
+Large k (``large_k_phase``): kmcuda's 4,000,000 x 480 bf16 into 40,000
+clusters with 4,000 Yinyang groups: B1 and B2 (B2 on its streamed route)
+held against the plain twin on about 262,000 sampled rows, B1's sums and
+counts against fp64 and a bincount of its assignment (``hold_pass``);
+the delta at k=40,000 (``check_delta_sum`` at ``LARGE_K_DELTA``); B2
+timed, the grouping, one full refresh of the 32 GB of bf16 lower bounds
+and its chunk's product, the filter's pass.
+
 kNN: the JAX bench's configuration (1,000,000 x 256 fp32 blobs, k=1024,
 16 neighbours) through the public ``knn_cuda``, clustered from the blob
 centers and, as the JAX bench seeds it, by AFK-MC2 (m=200); recall
@@ -238,6 +246,9 @@ import roofline as R
 
 HEADLINE = dict(n=100_000, f=256, k=1024)
 BF16_RUN = dict(n=1_000_000, f=256, k=1024)
+#: kmcuda's own large-k deployment (its README's 4M x 480 into 40,000
+#: clusters), bf16, with the default yinyang_t 0.1: 4,000 groups
+LARGE_K = dict(n=4_000_000, f=480, k=40_000, groups=4_000)
 RAGGED = dict(n=100_003, f=250, k=1000)
 KNN_BENCH = dict(n=1_000_000, f=256, k=1024, kn=16)
 KNN_RAGGED = dict(n=100_003, f=250, k=1000, kn=10)
@@ -1718,6 +1729,12 @@ DELTA_CASES = (
      ((79_484, False), (204_209, False), (630_524, False),
       (204_209, True))),
 )
+#: the delta at kmcuda's large-k deployment (:data:`LARGE_K`): 1% and 10%
+#: of its rows moved, and 10% skewed
+LARGE_K_DELTA = (
+    (4_000_000, 480, 40_000, torch.bfloat16,
+     ((40_000, False), (400_000, False), (400_000, True))),
+)
 #: the case whose times stand at the top of the kernel's entry: bench.py's
 #: 8M config at its middle sparse iteration's moved rows
 DELTA_MAIN = "8000000x256 bfloat16 k=1024 m=204209"
@@ -1759,10 +1776,10 @@ def fp64_delta(x, rows, new, old, k):
     return sums[:k], mag[:k], counts[:k]
 
 
-def check_delta_sum(tag):
+def check_delta_sum(tag, cases=DELTA_CASES):
     """``kmt_delta_sum`` against its twin (``compact.delta_compacted``, the
     one-hot product over chunks of 2048 listed rows) and fp64 at every
-    DELTA_CASES case: counts bitwise the twin's and the fp64 counts; sums
+    case of ``cases``: counts bitwise the twin's and the fp64 counts; sums
     within rtol 1e-5 of fp64, relative to the magnitude of the sums being
     differenced (the fp64 sum of |x_r| over both sides of a cluster: each
     side is an fp32 sum of up to 10^5 rows, and their difference can
@@ -1770,7 +1787,7 @@ def check_delta_sum(tag):
     (:func:`time_delta_sum`).  Returns (the largest |kernel - twin|, the
     times by case)."""
     worst, times = 0.0, {}
-    for n, f, k, dtype, ms in DELTA_CASES:
+    for n, f, k, dtype, ms in cases:
         g = torch.Generator(device="cuda").manual_seed(n + k)
         x = torch.rand(n, f, generator=g, device="cuda").to(dtype)
         for m, skew in ms:
@@ -2025,6 +2042,8 @@ def main() -> int:
     knn["launches"] += scale["launches"]["knn_walk"]
     knn["max_abs_err"] = max(knn["max_abs_err"], scale["walk_err"])
     knn["k16384"] = {**scale["walk"], "library_ms": None}
+
+    large_k_phase(tag, errs)
 
     bench = bench_phase(tag, scale["metrics"]["kmeans_8mx256_iterations"])
     for name in total:
@@ -3731,6 +3750,86 @@ def bench_phase(tag, iterations_8m):
     print("%s bench phase (python3 bench_torch.py, full size): %.1f s, exit "
           "0, 18 metrics, launches %s" % (tag, wall, launches), flush=True)
     return launches
+
+
+def large_k_phase(tag, errs):
+    """The kernels under Yinyang at :data:`LARGE_K`: B1 and B2 once each,
+    held against the plain twin on :func:`sample_rows`' 2**18 rows by
+    :func:`hold_pass` (B1's sums against fp64 sums of its assignment, its
+    counts bitwise a bincount of it, over all rows); B2 on its streamed
+    route (bf16 at f > 256) timed against its bound and ``torch.matmul``
+    on an eighth of the rows (the whole (n, k) product does not fit the
+    card); the grouping (``models.yinyang._group_centroids``: k-means++
+    and Lloyd over the centroids, capacity balancing); one full refresh of
+    the (n, G) bf16 lower bounds (``ops.yinyang._refresh``, in row chunks
+    of ``BOUND_CHUNK_ELEMENTS``) and one chunk's fp32 group-panel product,
+    against the refresh's bound (2 n k f fp32-grade operations, counted at
+    k); the filter's pass over the bounds (``_lmin_now``); then the delta
+    at k=40,000 (``check_delta_sum`` at :data:`LARGE_K_DELTA`).  Samples
+    U(0, 1), centroids near sample rows (:func:`make_inputs`).  B1's and
+    B2's best-score gap goes into ``errs`` as :func:`hold_pass` puts it,
+    the delta's largest |kernel - twin| into ``errs["delta_sum"]``."""
+    n, f, k, groups = (LARGE_K[key] for key in ("n", "f", "k", "groups"))
+    metric = D.DistanceMetric.L2
+    x, valid, prev, c = make_inputs(n, f, k, torch.bfloat16, metric,
+                                    False, 11)
+    kw = dict(n_clusters=k, metric=metric)
+    b1 = K.fused_lloyd_pass(x, valid, prev, c, **kw)
+    b2 = K.assign_only_pass(x, valid, prev, c, **kw)
+    hold_pass("%s large k: %dx%d bf16 k=%d" % (tag, n, f, k), x, valid,
+              prev, c, b1, b2, errs, rows=sample_rows(n, 1 << 18))
+    aid = b2[0]
+    del b1, b2
+    route = K.assign_route(torch.bfloat16, f, x.data_ptr() % 16 == 0)
+    b2 = time_ms(lambda: K.assign_only_pass(x, valid, prev, c, **kw), 3)
+    bnd = R.assign_bound(n, f, k, "bfloat16")
+    panel, _c_sq = pad_clusters(c, torch.bfloat16)
+    part = x[:n // 8]
+    mm = 8 * time_ms(lambda: torch.matmul(part, panel.T), 2)
+    del panel, part
+    print("%s large k: B2 %dx%d k=%d bf16 (%s route): %.2f ms, bound "
+          "%.2f ms (%s), %.1f%%; torch.matmul(x, panel.T), product only, "
+          "8 x an eighth of the rows: %.2f ms"
+          % (tag, n, f, k, "persistent" if route == K.ROUTE_PERSISTENT
+             else "streamed", b2, bnd["ms"], bnd["by"],
+             100 * bnd["ms"] / b2, mm), flush=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    layout = Y._group_centroids(c, groups, metric, I.generator(0x77))
+    torch.cuda.synchronize()
+    grouping = 1e3 * (time.perf_counter() - t)
+    tables = YY._tables(c, layout, torch.bfloat16, metric)
+    x_sq = D.row_sq_norms(x)
+    state = (torch.zeros(n, device=x.device),
+             torch.zeros((n, groups), dtype=torch.bfloat16, device=x.device),
+             torch.zeros(n, dtype=torch.int64, device=x.device),
+             torch.zeros(groups, device=x.device))
+    refresh = time_ms(lambda: YY._refresh(x, x_sq, aid, None, state, tables,
+                                          layout, metric), 2)
+    cap = layout.cap
+    rows = YY.BOUND_CHUNK_ELEMENTS // (groups * cap)
+    chunk = time_ms(lambda: D.matmul_f32(x[:rows], tables.panel_t), 20)
+    lmin = time_ms(lambda: YY._lmin_now(state[1], state[3]), 3)
+    ops = 2.0 * n * k * f
+    nbytes = n * f * 2 + 4 * k * f + n * groups * 2
+    rb = max(ops / R.PEAK_OPS_PER_S["fp32 product"],
+             nbytes / R.HBM_BYTES_PER_S) * 1e3
+    print("%s large k: grouping %d centroids into %d groups (cap %d) %.1f "
+          "ms; full refresh %.1f ms, bound %.1f ms (%.3g fp32-grade "
+          "operations at k, %.3g bytes), %.1f%%; a %d-row chunk's product "
+          "against the %d-slot panel %.3f ms (x %d chunks: %.1f ms); the "
+          "filter's pass over %.1f GB of bf16 bounds %.1f ms"
+          % (tag, k, groups, cap, grouping, refresh, rb, ops, nbytes,
+             100 * rb / refresh, rows, groups * cap, chunk, -(-n // rows),
+             chunk * -(-n // rows), n * groups * 2 / 1e9, lmin),
+          flush=True)
+    del x, valid, prev, c, aid, state, tables, x_sq
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst, _times = check_delta_sum(tag, LARGE_K_DELTA)
+    errs["delta_sum"] = max(errs["delta_sum"], worst)
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -331,35 +331,40 @@ def _n_rows(x, rows) -> int:
 def _refresh(x, x_sq, aid, rows, state, t: _Tables, layout, metric):
     """Fresh exact (u, l, ga) for ``rows`` (ascending int64 ids, None for
     all) under their new assignment ``aid``; writes ``state`` = (u, l, ga,
-    acc) in place."""
+    acc) in place.  One span ``kmt.yinyang.refresh``, the rows it
+    refreshes counted as ``yinyang.refreshed_rows``."""
     u, l, ga, acc = state
     groups, cap = layout.pad_src.shape
     eps = D.rounding_eps(x.dtype)
     env = panel_envelope(x.dtype, metric, x.shape[1])
     step = max(1, BOUND_CHUNK_ELEMENTS // (groups * cap))
-    for start in range(0, _n_rows(x, rows), step):
-        with P.span("kmt.yinyang.bounds"):
-            r = _row_chunk(rows, start, step)
-            xb = x[r]
-            xsqb = x_sq[r][:, None]
-            a = aid[r].long()
-            u_new = _exact_u(xb, xsqb[:, 0], a, t, metric)
-            own = layout.flat_slot[a]
-            g_new = own // cap
-            sp = D.matmul_f32(xb, t.panel_t) + t.bias
-            torch.nan_to_num_(sp, nan=config.PAD_PENALTY,
-                              posinf=config.PAD_PENALTY,
-                              neginf=config.PAD_PENALTY)
-            sp.scatter_(1, own[:, None], config.PAD_PENALTY)
-            l_sc = sp.view(-1, groups, cap).amin(dim=2)
-            if env:   # below both the bf16-scored and the exact score
-                l_sc = l_sc - env * _x_norm(xsqb) * t.g_norm
-            l_new = _finalize(l_sc, xsqb, metric, env)
-            # downward margin: the panel product rounds unlike the kernel's
-            l_new = l_new - eps * (1.0 + l_new)
-            u[r] = _u_store(u_new, acc[g_new])
-            l[r] = lower_cast(l_new + acc, l.dtype)
-            ga[r] = g_new
+    n_rows = _n_rows(x, rows)
+    with P.span("kmt.yinyang.refresh"):
+        P.count("yinyang.refreshed_rows", n_rows)
+        for start in range(0, n_rows, step):
+            with P.span("kmt.yinyang.bounds"):
+                r = _row_chunk(rows, start, step)
+                xb = x[r]
+                xsqb = x_sq[r][:, None]
+                a = aid[r].long()
+                u_new = _exact_u(xb, xsqb[:, 0], a, t, metric)
+                own = layout.flat_slot[a]
+                g_new = own // cap
+                sp = D.matmul_f32(xb, t.panel_t) + t.bias
+                torch.nan_to_num_(sp, nan=config.PAD_PENALTY,
+                                  posinf=config.PAD_PENALTY,
+                                  neginf=config.PAD_PENALTY)
+                sp.scatter_(1, own[:, None], config.PAD_PENALTY)
+                l_sc = sp.view(-1, groups, cap).amin(dim=2)
+                if env:   # below both the bf16-scored and the exact score
+                    l_sc = l_sc - env * _x_norm(xsqb) * t.g_norm
+                l_new = _finalize(l_sc, xsqb, metric, env)
+                # downward margin: the panel product rounds unlike the
+                # kernel's
+                l_new = l_new - eps * (1.0 + l_new)
+                u[r] = _u_store(u_new, acc[g_new])
+                l[r] = lower_cast(l_new + acc, l.dtype)
+                ga[r] = g_new
 
 
 def _refresh_u(x, x_sq, aid, rows, state, t: _Tables, layout, metric):

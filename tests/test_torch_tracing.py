@@ -51,7 +51,8 @@ PARENTS = {
     "kmt.yinyang.iteration": {"kmt.yinyang.loop"},
     "kmt.yinyang.filter": {"kmt.yinyang.iteration"},
     "kmt.yinyang.assign": {"kmt.yinyang.iteration"},
-    "kmt.yinyang.bounds": {"kmt.yinyang.iteration"},
+    "kmt.yinyang.refresh": {"kmt.yinyang.iteration"},
+    "kmt.yinyang.bounds": {"kmt.yinyang.iteration", "kmt.yinyang.refresh"},
     "kmt.knn.plan": {"kmt.knn"}, "kmt.knn.batch": {"kmt.knn"},
     "kmt.knn.finalize": {"kmt.knn"}, "kmt.walk": {"kmt.knn.batch"},
 }
@@ -186,7 +187,7 @@ def test_spans_nest_and_cover_the_call(x, case):
                         "kmt.yinyang.grouping", "kmt.yinyang.layout",
                         "kmt.yinyang.loop", "kmt.yinyang.iteration",
                         "kmt.yinyang.filter", "kmt.yinyang.assign",
-                        "kmt.yinyang.bounds"}}[case]
+                        "kmt.yinyang.refresh", "kmt.yinyang.bounds"}}[case]
     assert want <= set(got) and got[top] == {None}
     assert _uncovered(ev, top) == []
     assert rec["kind"] == top[4:]
