@@ -130,6 +130,13 @@ YY_BAILOUT_MARGIN = 1.02
 YY_REPROBE_ITERS = 128
 YY_REPROBE_ITERS_MAX = 2048
 
+#: The Lloyd handover: an iteration right after a full dense refresh that
+#: still finds more than YY_DENSE_FRACTION of the rows candidates hands
+#: the run to the Lloyd loop, which gives the bound path back once its
+#: walls reach 2^j times the refresh's surcharge over the Lloyd floor (j:
+#: the earlier handovers of the call).  Off, the bound path runs to the end.
+YY_LLOYD_HANDOVER = True
+
 # ---- kNN layout (models/knn.plan_pruned) -----------------------------------
 
 #: Below 2 * LANE samples kNN runs the brute-force search.

@@ -17,7 +17,10 @@ The JAX package's wall-clock controller (``YY_WALL_CONTROLLER``) decides
 what runs, never what comes out: budget gates hand a run with fewer than
 ``YY_MIN_REMAINING`` iterations (before the draft, or left after it) to
 Lloyd, and the loop runs in windows of iterations whose walls decide
-whether it may take its sparse branch (:func:`run`).  Above
+whether it may take its sparse branch (:func:`run`).  The port's
+controller adds one arm, the Lloyd handover (:func:`_controlled_loop`):
+where a fresh bound refresh prunes nothing it continues on the Lloyd loop,
+and comes back by the walls it measures.  Above
 ``YY_BOUNDS_F32_MAX_BYTES`` of fp32 lower bounds they are stored in bf16.
 
 Over row shards the draft and the loop run each shard's passes and reduce
@@ -151,6 +154,8 @@ def _run(problem, centroids, assignments, tolerance, groups: int,
     when the draft measured none) times ``YY_BAILOUT_MARGIN`` revokes the
     sparse branch; it is re-probed after ``YY_REPROBE_ITERS`` dense
     iterations, the interval doubling up to ``YY_REPROBE_ITERS_MAX``.
+    Where a fresh refresh prunes nothing the run goes on as Lloyd for a
+    while (the handover, :func:`_controlled_loop`).
 
     Returns (centroids, assignments, best_scores_or_None, iterations);
     the centroids are the ones the assignments were computed against."""
@@ -208,7 +213,10 @@ def _run(problem, centroids, assignments, tolerance, groups: int,
         steps.close()
         drv.finish()
         return step.c_used, step.assign, step.best, drv.done
+    # dropped, not only closed: a closed generator keeps its frame's
+    # locals while it lives on some CPython 3.12 releases
     steps.close()
+    del steps
     t1 = time.perf_counter()
     p.logger.debug("yinyang: draft phase %.3f s (%d iterations)"
                    % (t1 - t0, drv.done))
@@ -227,93 +235,169 @@ def _run(problem, centroids, assignments, tolerance, groups: int,
         p.logger.debug("yinyang: bf16 lower-bound storage (%d MB)"
                        % (p.n * groups * 2 // 2**20))
 
-    sched = YY.Schedule()
+    def open_loop(start, sched):
+        """A Yinyang loop from ``start``, a Lloyd step (the draft's, or
+        the last of a handover): its first iteration is the bound init."""
+        return YY.yy_run(p.xs, p.x_sqs, p.valids, start.assign, start.c_used,
+                         start.sums, start.counts, start.changed, layout,
+                         n_clusters=p.k, metric=p.metric, sched=sched,
+                         bounds_dtype=bounds_dtype)
+
     # no Lloyd floor from the draft (it ran one iteration): the first
     # judged window runs dense and measures it before sparse may run
     floor_probe = ctl and lloyd_spi is None
-    sched.sparse_ok = not floor_probe
-    loop = YY.yy_run(p.xs, p.x_sqs, p.valids, step.assign, step.c_used,
-                     step.sums, step.counts, step.changed, layout,
-                     n_clusters=p.k, metric=p.metric, sched=sched,
-                     bounds_dtype=bounds_dtype)
-    ys = _controlled_loop(p, drv, loop, sched, ctl, lloyd_spi, floor_probe)
-    loop.close()
+    # the controller holds the draft's last step alone, so that it goes
+    # with the first loop
+    start = [step]
+    del step
+    last = _controlled_loop(p, drv, start, open_loop, ctl, lloyd_spi,
+                            floor_probe)
     drv.finish()
     p.logger.debug("yinyang: main loop %.3f s (%d iterations total)"
                    % (time.perf_counter() - t2, drv.done))
-    return ys.c_used, ys.assign, None, drv.done
+    return last.c_used, last.assign, None, drv.done
 
 
 @P.spanned("kmt.yinyang.loop")
-def _controlled_loop(p, drv, loop, sched, ctl: bool, lloyd_spi,
+def _controlled_loop(p, drv, start: list, open_loop, ctl: bool, lloyd_spi,
                      floor_probe: bool):
-    """Feed the Yinyang loop's steps to ``drv`` (a ``lloyd.Driver``), in
-    the controller's windows, until it stops; returns the last
-    ``YinyangStep``.  Each iteration, the loop's step and ``drv.absorb``,
-    is one span ``kmt.yinyang.iteration`` with its counters."""
+    """Feed Yinyang loops (``open_loop(step, sched)``, from a Lloyd step:
+    first the draft's last, popped from ``start``) to ``drv`` (a
+    ``lloyd.Driver``), in the controller's windows, until it stops;
+    returns the last step, a ``YinyangStep`` or, on the Lloyd path, a
+    ``LloydStep``.  Each loop iteration, the loop's step and
+    ``drv.absorb``, is one span ``kmt.yinyang.iteration`` with its
+    counters.
+
+    The Lloyd handover (``YY_LLOYD_HANDOVER``, an arm of the controller,
+    off in the triage modes): an iteration right after a full dense
+    refresh (the bound init included) whose filter still leaves more than
+    ``YY_DENSE_FRACTION`` of the rows candidates, with the bounds at
+    their tightest, shows they prune nothing.  The loop is closed (its
+    bounds freed) and ``ops.assign.lloyd_run`` continues its accumulation
+    stream, each iteration one span ``kmt.yinyang.lloyd`` counted
+    ``yinyang.handed_over`` 1 and ``yinyang.passed`` the valid rows, until
+    the Lloyd walls reach 2^j times the refresh iteration's wall less the
+    Lloyd floor (j: the handovers before this one); then a new loop
+    starts from the Lloyd step on the same grouping, its windows afresh.
+    Counts decide the handover and walls the return; neither decides what
+    comes out.  A closed loop and its steps are dropped before the next
+    one allocates, so a re-entry does not raise the memory peak."""
     P.count("yinyang.rows", p.n_valid)
-    window = 1 if ctl else None
-    judged = False
+    # the arm's mark: a record without it is of a program without it
+    P.count("yinyang.handed_over", 0)
+    hand = ctl and config.YY_LLOYD_HANDOVER and not config.YY_DEBUG_MODE
     reprobe_after = config.YY_REPROBE_ITERS
-    since_revoke = 0
-    more = True
-    while more:
-        t_w = time.perf_counter()
-        its = sparse = 0
-        while more and its != window:
-            with P.span("kmt.yinyang.iteration"):
-                ys = next(loop)
-                more = drv.absorb(ys.changed)
-                P.count("yinyang.candidates", ys.candidates)
-                P.count("yinyang.passed", ys.passed)
-                P.count("yinyang.patched", ys.patched)
-                if p.logger.verbosity > 1:
-                    p.logger.debug(
-                        "yinyang: %d candidates, %d samples passed the "
-                        "global filter" % (ys.candidates, ys.passed))
-                    p.logger.debug(
-                        "yinyang: %s iteration, %d moved rows patched"
-                        % (ys.variant, ys.patched))
-            its += 1
-            sparse += ys.variant.startswith("sparse")
-        wall = time.perf_counter() - t_w
-        p.logger.debug("yinyang: segment of %d iterations in %.3f s"
-                       % (its, wall))
-        if not (more and ctl):
-            continue
-        spi = wall / its
-        frac_sparse = sparse / its
-        if not judged:
-            judged = True     # the first iteration's full refresh
-            window = config.YY_PROBE_ITERS
-            continue
-        if frac_sparse <= 0.25:
-            # a dense window measures what revoking the sparse branch
-            # costs: the freshest floor
-            lloyd_spi = spi
-        grow = min(window * 4, config.YY_WINDOW_MAX_ITERS)
-        if floor_probe:
-            floor_probe = False
-            sched.sparse_ok = True
-            window = config.YY_PROBE_ITERS
-        elif sched.sparse_ok:
-            if (frac_sparse >= 0.5 and lloyd_spi is not None
-                    and spi > lloyd_spi * config.YY_BAILOUT_MARGIN):
-                p.logger.debug(
-                    "yinyang: sparse branch revoked (%.3g s/it vs Lloyd "
-                    "%.3g)" % (spi, lloyd_spi))
-                sched.sparse_ok = False
-                since_revoke = 0
-            window = grow
-        else:
-            since_revoke += its
-            window = grow
-            if since_revoke >= reprobe_after:
-                p.logger.debug(
-                    "yinyang: re-probing the sparse branch after %d dense "
-                    "iterations" % since_revoke)
+    since_revoke = handovers = 0
+    sched = YY.Schedule(sparse_ok=not floor_probe)
+    step = start.pop()
+    while True:
+        loop = open_loop(step, sched)
+        del step   # its best scores: the loop keeps what it needs
+        window = 1 if ctl else None
+        judged = handover = False
+        refresh_wall = None   # the previous iteration's, a dense refresh's
+        more = True
+        while more and not handover:
+            t_w = time.perf_counter()
+            its = sparse = 0
+            while more and its != window:
+                t_i = time.perf_counter()
+                ys = None   # the last step's running sums go before the next
+                with P.span("kmt.yinyang.iteration"):
+                    ys = next(loop)
+                    more = drv.absorb(ys.changed)
+                    P.count("yinyang.candidates", ys.candidates)
+                    P.count("yinyang.passed", ys.passed)
+                    P.count("yinyang.patched", ys.patched)
+                    if p.logger.verbosity > 1:
+                        p.logger.debug(
+                            "yinyang: %d candidates, %d samples passed the "
+                            "global filter" % (ys.candidates, ys.passed))
+                        p.logger.debug(
+                            "yinyang: %s iteration, %d moved rows patched"
+                            % (ys.variant, ys.patched))
+                its += 1
+                sparse += ys.variant.startswith("sparse")
+                handover = (hand and more and refresh_wall is not None
+                            and YY.filter_dense(ys.candidates, p.n))
+                if handover:
+                    break
+                refresh_wall = (time.perf_counter() - t_i
+                                if ys.variant == "dense refresh" else None)
+            wall = time.perf_counter() - t_w
+            p.logger.debug("yinyang: segment of %d iterations in %.3f s"
+                           % (its, wall))
+            if handover or not (more and ctl):
+                continue
+            spi = wall / its
+            frac_sparse = sparse / its
+            if not judged:
+                judged = True     # the first iteration's full refresh
+                window = config.YY_PROBE_ITERS
+                continue
+            if frac_sparse <= 0.25:
+                # a dense window measures what revoking the sparse branch
+                # costs: the freshest floor
+                lloyd_spi = spi
+            grow = min(window * 4, config.YY_WINDOW_MAX_ITERS)
+            if floor_probe:
+                floor_probe = False
                 sched.sparse_ok = True
                 window = config.YY_PROBE_ITERS
-                reprobe_after = min(reprobe_after * 2,
-                                    config.YY_REPROBE_ITERS_MAX)
-    return ys
+            elif sched.sparse_ok:
+                if (frac_sparse >= 0.5 and lloyd_spi is not None
+                        and spi > lloyd_spi * config.YY_BAILOUT_MARGIN):
+                    p.logger.debug(
+                        "yinyang: sparse branch revoked (%.3g s/it vs Lloyd "
+                        "%.3g)" % (spi, lloyd_spi))
+                    sched.sparse_ok = False
+                    since_revoke = 0
+                window = grow
+            else:
+                since_revoke += its
+                window = grow
+                if since_revoke >= reprobe_after:
+                    p.logger.debug(
+                        "yinyang: re-probing the sparse branch after %d "
+                        "dense iterations" % since_revoke)
+                    sched.sparse_ok = True
+                    window = config.YY_PROBE_ITERS
+                    reprobe_after = min(reprobe_after * 2,
+                                        config.YY_REPROBE_ITERS_MAX)
+        loop.close()
+        del loop   # see _run: dropped, not only closed
+        if not handover:
+            return ys
+        p.logger.debug(
+            "yinyang: handing over to Lloyd (%d candidates of %d rows "
+            "after a full refresh of %.3f s)"
+            % (ys.candidates, p.n, refresh_wall))
+        steps = A.lloyd_run(
+            p.xs, p.valids, ys.assign,
+            D.normalize_centroids(ys.sums, ys.counts.float(), p.metric),
+            n_clusters=p.k, metric=p.metric,
+            resume=(ys.sums, ys.counts, ys.changed))
+        del ys    # the closed loop's bounds go with its last step
+        budget = 2 ** handovers
+        handovers += 1
+        spent, its = 0.0, 0
+        while more:
+            t_i = time.perf_counter()
+            with P.span("kmt.yinyang.lloyd"):
+                step = next(steps)
+                more = drv.absorb(step.changed)
+                P.count("yinyang.handed_over", 1)
+                P.count("yinyang.passed", p.n_valid)
+            spent += time.perf_counter() - t_i
+            its += 1
+            floor = spent / its if lloyd_spi is None else lloyd_spi
+            if spent >= budget * (refresh_wall - floor):
+                break
+        steps.close()
+        del steps
+        if not more:
+            return step
+        p.logger.debug("yinyang: back on the bound path after %d Lloyd "
+                       "iterations in %.3f s" % (its, spent))
+        sched = YY.Schedule(sparse_ok=sched.sparse_ok)

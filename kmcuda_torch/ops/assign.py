@@ -83,7 +83,7 @@ class LloydStep(NamedTuple):
 
 
 def lloyd_run(x, valid, assign, centroids, *, n_clusters: int,
-              metric: D.DistanceMetric):
+              metric: D.DistanceMetric, resume=None):
     """Iterate Lloyd; yields a :class:`LloydStep` once per iteration and
     runs until the caller stops iterating.
 
@@ -93,6 +93,12 @@ def lloyd_run(x, valid, assign, centroids, *, n_clusters: int,
     live on the leader (shard 0's device).  The first iteration is always
     dense (the previous count starts at int32 max), so the running sums
     exist before any sparse iteration adds to them.
+
+    ``resume`` = (sums, counts, changed) continues another loop's
+    accumulation stream instead: ``assign`` is that loop's last
+    assignment, ``centroids`` the update of its running (sums, counts),
+    and its reassignment count ``changed`` picks the first sum arm, so
+    the iterations are bitwise the ones the loop would have run.
     """
     # imported here: assign_kernels imports this module's panel builders
     from kmcuda_torch.ops import assign_kernels as K
@@ -105,6 +111,9 @@ def lloyd_run(x, valid, assign, centroids, *, n_clusters: int,
     c_cur = centroids.float().to(topo.leader)
     sums = counts = None
     prev_changed = INT32_MAX
+    if resume is not None:
+        sums, counts, prev_changed = resume
+        sums, counts = sums.to(topo.leader), counts.to(topo.leader)
     while True:
         cs = topo.broadcast(c_cur)
         if C.predict_dense(prev_changed, n):

@@ -131,7 +131,9 @@ class YinyangStep(NamedTuple):
     """One iteration: ``c_used`` are the centroids its assignment was
     computed against; ``u``, ``l``, ``ga``, ``acc`` the stored bounds (see
     :func:`current_bounds`); ``variant`` one of :data:`VARIANTS`;
-    ``patched`` the moved rows the patch gave fresh bounds."""
+    ``patched`` the moved rows the patch gave fresh bounds; ``sums``,
+    ``counts`` the running accumulation after it, on the leader (what
+    ``ops.assign.lloyd_run`` resumes from)."""
 
     c_used: torch.Tensor
     assign: torch.Tensor
@@ -144,6 +146,8 @@ class YinyangStep(NamedTuple):
     acc: torch.Tensor
     variant: str
     patched: int
+    sums: torch.Tensor
+    counts: torch.Tensor
 
 
 class _Tables(NamedTuple):
@@ -157,6 +161,13 @@ class _Tables(NamedTuple):
 
     def to(self, device) -> "_Tables":
         return _Tables(*(t.to(device) for t in self))
+
+
+def filter_dense(n_cand: int, n: int) -> bool:
+    """More than ``YY_DENSE_FRACTION`` of the ``n`` rows are candidates:
+    the filter's own count sends the iteration down the dense path."""
+    return bool(np.float32(n_cand)
+                > np.float32(config.YY_DENSE_FRACTION) * np.float32(n))
 
 
 def exact_drift(c_new, c_old, metric):
@@ -413,7 +424,6 @@ def yy_run(x, x_sq, valid, assign, c_used, sums, counts, prev_changed: int,
     real = layout.pad_pen == 0
     s = Schedule() if sched is None else sched
     debug = int(config.YY_DEBUG_MODE)
-    dense_rows = np.float32(config.YY_DENSE_FRACTION) * np.float32(n)
     backoff_max = int(config.YY_REFRESH_BACKOFF_MAX)
     us = [torch.zeros((t.shape[0],), dtype=torch.float32, device=t.device)
           for t in xs]
@@ -449,7 +459,7 @@ def yy_run(x, x_sq, valid, assign, c_used, sums, counts, prev_changed: int,
             sum_dense = C.predict_dense(prev_changed, n)
             # the triage modes exercise the sparse path in every iteration
             dense = not debug and (first or not s.sparse_ok
-                                   or np.float32(n_cand) > dense_rows)
+                                   or filter_dense(n_cand, n))
 
             # ---- the schedule (kmcuda_tpu/ops/yinyang.py:669-705) ------
             if s.ref_any:
@@ -566,5 +576,6 @@ def yy_run(x, x_sq, valid, assign, c_used, sums, counts, prev_changed: int,
         s.ref_any = refreshed
         yield YinyangStep(c_new, shaped_like(x, aids), changed, n_cand,
                           passed, shaped_like(x, us), shaped_like(x, ls),
-                          shaped_like(x, gas), acc, variant, patched)
+                          shaped_like(x, gas), acc, variant, patched, sums,
+                          counts)
         assigns, c_cur, prev_changed, first = aids, c_new, changed, False

@@ -46,10 +46,12 @@ torch.set_num_threads(2)
 def pinned_controller(monkeypatch):
     """The wall-clock controller decides on host timings, which would make
     the path a test takes depend on the machine's load; pin it to "never
-    gate, never revoke", as tests/conftest.py pins the JAX package's.  The
-    controller's own tests set the values back."""
+    gate, never revoke, never hand over to Lloyd", as tests/conftest.py
+    pins the JAX package's.  The controller's own tests set the values
+    back."""
     monkeypatch.setattr(config, "YY_MIN_REMAINING", 0)
     monkeypatch.setattr(config, "YY_BAILOUT_MARGIN", float("inf"))
+    monkeypatch.setattr(config, "YY_LLOYD_HANDOVER", False)
 
 
 @pytest.fixture(scope="module")

@@ -32,17 +32,20 @@ torch.set_num_threads(2)
 
 #: the wall-clock controller's settings, read before any test pins them
 CONTROLLER = {"YY_MIN_REMAINING": config.YY_MIN_REMAINING,
-              "YY_BAILOUT_MARGIN": config.YY_BAILOUT_MARGIN}
+              "YY_BAILOUT_MARGIN": config.YY_BAILOUT_MARGIN,
+              "YY_LLOYD_HANDOVER": config.YY_LLOYD_HANDOVER}
 
 KW = dict(tolerance=0.002, verbosity=2)
 
 
 @pytest.fixture(autouse=True)
 def pinned_controller(monkeypatch):
-    """Never gate, never revoke, as tests/test_torch_yinyang.py pins it;
-    the controller test sets the values back."""
+    """Never gate, never revoke, never hand over, as
+    tests/test_torch_yinyang.py pins it; the controller test sets the
+    values back."""
     monkeypatch.setattr(config, "YY_MIN_REMAINING", 0)
     monkeypatch.setattr(config, "YY_BAILOUT_MARGIN", float("inf"))
+    monkeypatch.setattr(config, "YY_LLOYD_HANDOVER", False)
 
 
 @pytest.fixture(scope="module")

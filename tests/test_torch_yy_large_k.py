@@ -71,10 +71,10 @@ def _settings(**values):
             setattr(where.get(k, config), k, v)
 
 
-#: never gate, never revoke (as tests/test_torch_yinyang.py pins the
-#: controller), and refreshes in many row chunks
+#: never gate, never revoke, never hand over (as tests/test_torch_yinyang.py
+#: pins the controller), and refreshes in many row chunks
 PINNED = dict(YY_MIN_REMAINING=0, YY_BAILOUT_MARGIN=float("inf"),
-              BOUND_CHUNK_ELEMENTS=CHUNK_ELEMENTS)
+              YY_LLOYD_HANDOVER=False, BOUND_CHUNK_ELEMENTS=CHUNK_ELEMENTS)
 
 
 @pytest.fixture(scope="module")

@@ -44,9 +44,11 @@ torch.set_num_threads(2)
 @pytest.fixture(autouse=True)
 def pinned_controller(monkeypatch):
     """The controller pin of tests/test_torch_yinyang.py: never gate, never
-    revoke; the controller's tests set the values back."""
+    revoke, never hand over; the controller's tests set the values back
+    (the handover's own: tests/test_torch_yy_handover.py)."""
     monkeypatch.setattr(config, "YY_MIN_REMAINING", 0)
     monkeypatch.setattr(config, "YY_BAILOUT_MARGIN", float("inf"))
+    monkeypatch.setattr(config, "YY_LLOYD_HANDOVER", False)
 
 
 @pytest.fixture(scope="module")
@@ -121,6 +123,7 @@ def tight_refs(tight):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(config, "YY_MIN_REMAINING", 0)
         mp.setattr(config, "YY_BAILOUT_MARGIN", float("inf"))
+        mp.setattr(config, "YY_LLOYD_HANDOVER", False)
         yy = _run(x, k, yinyang_t=0.1, **TIGHT_KW)
     return _run(x, k, yinyang_t=0, **TIGHT_KW), yy
 
